@@ -1,0 +1,128 @@
+"""Segmented first-occurrence dedup of the quilting round's candidates.
+
+Every candidate of every block-pair graph is packed into one int64
+
+    graph_id << (2*node_bits + arrival_bits)
+        | src << (node_bits + arrival_bits)
+        | dst << arrival_bits
+        | arrival
+
+so one sort groups duplicates while the low ``arrival`` bits keep a strict
+total order and carry the permutation; a second sort of
+``(arrival << 1) | is_first`` brings the flags back to arrival order.  The
+keys are distinct, so neither sort needs to be stable.  When the packed key
+does not fit 63 bits the same order comes from two stable sorts, of
+``(dst, arrival)`` and then of ``(graph, src)``.
+
+Arrival order matters: per graph, the FIRST ``target`` distinct pairs of the
+stream are kept (Algorithm 1), never the smallest ids.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def _packed_bits(node_bits: int, num_graphs: int, n: int) -> Tuple[int, int, bool]:
+    glog = max(int(num_graphs - 1).bit_length(), 1) if num_graphs > 1 else 1
+    abits = max(int(n - 1).bit_length(), 1) if n > 1 else 1
+    fits = glog + 2 * node_bits + abits <= 63
+    return glog, abits, fits
+
+
+def _first_flags(*cols: torch.Tensor) -> torch.Tensor:
+    """True where a sorted row differs from its predecessor in any column."""
+    first = torch.ones_like(cols[0], dtype=torch.bool)
+    if cols[0].numel() > 1:
+        diff = cols[0][1:] != cols[0][:-1]
+        for c in cols[1:]:
+            diff = diff | (c[1:] != c[:-1])
+        first[1:] = diff
+    return first
+
+
+def segmented_unique_mask(
+    graph_id: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    cum_asks: torch.Tensor,
+    targets: torch.Tensor,
+    *,
+    node_bits: int,
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-graph first-occurrence mask with arrival-order target capping.
+
+    ``graph_id`` is non-decreasing; graph g's candidates are the contiguous
+    chunk ``[cum_asks[g-1], cum_asks[g])``.  Returns ``(take, counts)``:
+    ``take[i]`` marks candidate i as one of the first ``targets[g]``
+    distinct ``(src, dst)`` pairs of its graph in stream order, and
+    ``counts[g]`` is the number taken in graph g (int32).
+
+    ``valid`` excludes rows from the ranking and the output: they are
+    remapped to the sentinel pair ``(2^node_bits, 2^node_bits)`` before
+    packing (one more bit per id), so they never collide with a real pair,
+    and are never fresh.
+    """
+    n = src.shape[0]
+    dev = src.device
+    num_graphs = targets.shape[0]
+    if valid is not None:
+        sentinel = torch.full((), 1 << node_bits, dtype=torch.int32, device=dev)
+        src = torch.where(valid, src.to(torch.int32), sentinel)
+        dst = torch.where(valid, dst.to(torch.int32), sentinel)
+        node_bits = node_bits + 1
+    _, abits, fits = _packed_bits(node_bits, num_graphs, n)
+    arrival = torch.arange(n, dtype=torch.int64, device=dev)
+    g64, s64, d64 = (x.to(torch.int64) for x in (graph_id, src, dst))
+
+    if fits:
+        key = (
+            (g64 << (2 * node_bits + abits))
+            | (s64 << (node_bits + abits))
+            | (d64 << abits)
+            | arrival
+        )
+        ks = torch.sort(key).values
+        first = _first_flags(ks >> abits)
+        arr_sorted = ks & ((1 << abits) - 1)
+    else:
+        # signed int32 columns: x * 2^k + y keeps (x, y) order for y in range
+        order = torch.sort(d64 * (1 << 31) + arrival, stable=True).indices
+        lead = (g64 * (1 << 32) + s64)[order]
+        order = order[torch.sort(lead, stable=True).indices]
+        first = _first_flags(g64[order], s64[order], d64[order])
+        arr_sorted = order
+
+    # a second sort un-permutes the flags back to arrival order
+    restore = torch.sort((arr_sorted << 1) | first.to(torch.int64)).values
+    fresh = (restore & 1) > 0
+    if valid is not None:
+        fresh = fresh & valid
+
+    gid = graph_id.to(torch.int64)
+    cum_asks = cum_asks.to(torch.int64)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    offs_ex = torch.cat([zero, cum_asks[:-1]])
+    ends = torch.clamp_min(cum_asks - 1, 0)
+
+    def _before(c: torch.Tensor) -> torch.Tensor:
+        # inclusive prefix count just before each graph's chunk
+        if n == 0:
+            return torch.zeros_like(offs_ex)
+        prev = c[torch.clamp_min(offs_ex - 1, 0)]
+        return torch.where(offs_ex > 0, prev, torch.zeros_like(prev))
+
+    c = torch.cumsum(fresh.to(torch.int64), 0)
+    rank = c - _before(c)[gid]  # 1-based rank among fresh, per graph
+    take = fresh & (rank <= targets.to(torch.int64)[gid])
+
+    ct = torch.cumsum(take.to(torch.int64), 0)
+    if n:
+        counts = ct[torch.clamp_max(ends, n - 1)] - _before(ct)
+    else:
+        counts = torch.zeros_like(offs_ex)
+    counts = torch.where(cum_asks > offs_ex, counts, torch.zeros_like(counts))
+    return take, counts.to(torch.int32)

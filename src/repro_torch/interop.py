@@ -1,0 +1,39 @@
+"""State carried over from the JAX package.
+
+A sampler has no weights; what the two packages must share to give the
+same graph is the initiator thetas, the attribute matrix and the key.
+:func:`from_reference` takes them as the numpy arrays the JAX package
+holds and returns the port's counterparts.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import magm
+
+
+def from_reference(
+    thetas: np.ndarray, F: np.ndarray, key_data: np.ndarray, mu: Optional[np.ndarray] = None
+) -> Tuple[magm.MAGMParams, np.ndarray, torch.Tensor]:
+    """``(params, F, key)`` of the port from the reference's ``(d, 2, 2)``
+    float32 thetas, ``(n, d)`` attributes and raw uint32 key words
+    (``jax.random.key_data``).  ``mu`` defaults to F's column means; it is
+    used only when a session draws attributes itself."""
+    th = np.asarray(thetas, dtype=np.float32)
+    if th.ndim != 3 or th.shape[1:] != (2, 2):
+        raise ValueError(f"thetas must be (d, 2, 2), got {th.shape}")
+    F = np.asarray(F)
+    if F.ndim != 2 or F.shape[1] != th.shape[0]:
+        raise ValueError(f"F must be (n, {th.shape[0]}), got {F.shape}")
+    if mu is None:
+        mu = F.mean(axis=0) if F.shape[0] else np.full(th.shape[0], 0.5)
+    mu_t = torch.from_numpy(np.broadcast_to(np.asarray(mu, np.float32), (th.shape[0],)).copy())
+    words = np.asarray(key_data).astype(np.uint32).reshape(-1)
+    if words.size != 2:
+        raise ValueError(f"key_data must hold two uint32 words, got {words.size}")
+    key = torch.from_numpy(words.astype(np.int64))
+    return magm.MAGMParams(torch.from_numpy(th.copy()), mu_t), F, key

@@ -1,0 +1,276 @@
+"""Counter-PRNG quadrant descent + per-block lookup: the CUDA kernel's
+wrapper, its plain PyTorch version, and the counter-hash family.
+
+Candidate row ``s`` of graph ``g`` draws its level-``k`` uniform from
+``counter_u01(seed, g, s * PRNG_CHANNELS + k)``, a pure function of the round
+key's two words, the global graph id and the candidate's absolute slot, so
+every device and every layout of the graphs sees the same stream.  The hash
+family below is bit-identical to the reference's
+(``repro/kernels/quadrant_descent.py``); uint32 arithmetic runs in int64
+with ``& 0xFFFFFFFF`` masks, which PyTorch supports on every device.
+
+:func:`quilt_prng_descent_lookup` runs the CUDA kernel
+(``csrc/quilt_prng_descent_lookup.cu``) on a CUDA tensor and its plain
+version :func:`quilt_prng_descent_lookup_plain` on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+M32 = 0xFFFFFFFF
+
+# channels reserved per candidate slot: 0..d-1 carry the descent uniforms,
+# the last two the ball-dropping block ranks
+PRNG_CHANNELS = 64
+_RANK0 = PRNG_CHANNELS - 2
+
+# lowbias32 avalanche multipliers plus the word / graph stream separators
+_MIX_A = 0x7FEB352D
+_MIX_B = 0x846CA68B
+_WORD_C = 0x9E3779B9
+_GID_C = 0x85EBCA6B
+
+_TWO_M24 = 2.0**-24
+
+Seed = Tuple[int, int]
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32 finalizer on uint32 values held in int64."""
+    x = x ^ (x >> 16)
+    x = (x * _MIX_A) & M32
+    x = x ^ (x >> 15)
+    x = (x * _MIX_B) & M32
+    return x ^ (x >> 16)
+
+
+def counter_hash(s0, s1, gid: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
+    """uint32 hash (in int64) of the counter ``(seed words, graph, word)``."""
+    gid = gid.to(torch.int64) & M32
+    x = _mix32((word.to(torch.int64) * _WORD_C + s0) & M32)
+    x = x ^ ((gid * _GID_C + s1) & M32)
+    return _mix32(x)
+
+
+def counter_u01(s0, s1, gid: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
+    """float32 uniform in [0, 1) from the hash's top 24 bits (exact)."""
+    return (counter_hash(s0, s1, gid, word) >> 8).to(torch.float32) * _TWO_M24
+
+
+def counter_rank(s0, s1, gid, word, num_blocks: int) -> torch.Tensor:
+    """int32 rank in [0, num_blocks) from 31 hash bits."""
+    return ((counter_hash(s0, s1, gid, word) >> 1) % int(num_blocks)).to(torch.int32)
+
+
+def counter_seed(key: torch.Tensor) -> Seed:
+    """The counter hash's two seed words (uint32 ints) from a key."""
+    words = torch.as_tensor(key, dtype=torch.int64).reshape(-1)[-2:].tolist()
+    return words[0] & M32, words[1] & M32
+
+
+def descent_uniforms(s0, s1, gid: torch.Tensor, slot: torch.Tensor, d: int) -> torch.Tensor:
+    """(N, d) float32 descent uniforms for channels 0..d-1 of each slot."""
+    ch = torch.arange(d, dtype=torch.int64, device=slot.device)
+    word = slot.to(torch.int64).reshape(-1, 1) * PRNG_CHANNELS + ch[None, :]
+    return counter_u01(s0, s1, gid.reshape(-1, 1), word)
+
+
+def rank_pair(s0, s1, gid, slot, num_blocks: int):
+    """(kb, lb) block ranks from the two reserved rank channels."""
+    base = slot.to(torch.int64) * PRNG_CHANNELS
+    kb = counter_rank(s0, s1, gid, base + _RANK0, num_blocks)
+    lb = counter_rank(s0, s1, gid, base + _RANK0 + 1, num_blocks)
+    return kb, lb
+
+
+def _descend_body(u: torch.Tensor, cum: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, d) uniforms + (d, 4) cumulative probs -> int32 (src, dst) configs;
+    level 0 is the most significant bit."""
+    quad = (u >= cum[None, :, 0]).to(torch.int64)
+    quad = quad + (u >= cum[None, :, 1]) + (u >= cum[None, :, 2])
+    d = u.shape[1]
+    pows = torch.ones((), dtype=torch.int64, device=u.device) << torch.arange(
+        d - 1, -1, -1, device=u.device
+    )
+    src = ((quad >> 1) * pows).sum(dim=1)
+    dst = ((quad & 1) * pows).sum(dim=1)
+    return src.to(torch.int32), dst.to(torch.int32)
+
+
+def _block_pairs(s0, s1, gid, base, num_blocks: int, ranks: bool):
+    if ranks:
+        kb = counter_rank(s0, s1, gid, base + _RANK0, num_blocks)
+        lb = counter_rank(s0, s1, gid, base + _RANK0 + 1, num_blocks)
+        return kb.to(torch.int64), lb.to(torch.int64)
+    blk = gid % (num_blocks * num_blocks)
+    kb = blk // num_blocks
+    return kb, blk - kb * num_blocks
+
+
+def _lookup(table_cfg: torch.Tensor, table_node: torch.Tensor, row, target):
+    """Lower bound of ``target`` in row ``row`` of the ascending (B, L)
+    tables, clamped to L - 1; the node id on an exact hit, else -1."""
+    B, L = table_cfg.shape
+    cfg = table_cfg.to(torch.int64)
+    rows = torch.arange(B, dtype=torch.int64, device=cfg.device)
+    flat = ((rows[:, None] << 32) | cfg).reshape(-1)  # ascending overall
+    pos = torch.searchsorted(flat, (row << 32) | target) - row * L
+    idx = row * L + pos.clamp_max(L - 1)
+    hit = cfg.reshape(-1)[idx] == target
+    node = table_node.reshape(-1)[idx]
+    return torch.where(hit, node, torch.full_like(node, -1))
+
+
+def quilt_prng_descent_lookup_plain(
+    seed: Seed,
+    gids: torch.Tensor,
+    cum: torch.Tensor,
+    table_cfg: torch.Tensor,
+    table_node: torch.Tensor,
+    *,
+    a_tot: int,
+    num_blocks: int,
+    ranks: bool = False,
+):
+    """The kernel's function in plain PyTorch, on any device.
+
+    Row ``r`` of the ``gids.numel() * a_tot`` rows is slot ``r % a_tot`` of
+    graph ``gids[r // a_tot]``.  Returns ``(src_cfg, dst_cfg, src_node,
+    dst_node)``, each int32, node -1 where the config is not in the block.
+    Levels are hashed one at a time, so memory stays O(rows).
+    """
+    s0, s1 = seed
+    dev = gids.device
+    n = gids.numel() * int(a_tot)
+    row = torch.arange(n, dtype=torch.int64, device=dev)
+    local = row // a_tot
+    gid = gids.reshape(-1).to(torch.int64)[local]
+    base = (row - local * a_tot) * PRNG_CHANNELS
+    del row, local
+    scfg = torch.zeros(n, dtype=torch.int64, device=dev)
+    dcfg = torch.zeros(n, dtype=torch.int64, device=dev)
+    for k in range(cum.shape[0]):
+        u = counter_u01(s0, s1, gid, base + k)
+        quad = (u >= cum[k, 0]).to(torch.int64) + (u >= cum[k, 1]) + (u >= cum[k, 2])
+        scfg = (scfg << 1) | (quad >> 1)
+        dcfg = (dcfg << 1) | (quad & 1)
+    kb, lb = _block_pairs(s0, s1, gid, base, int(num_blocks), ranks)
+    snode = _lookup(table_cfg, table_node, kb, scfg)
+    dnode = _lookup(table_cfg, table_node, lb, dcfg)
+    return scfg.to(torch.int32), dcfg.to(torch.int32), snode, dnode
+
+
+# launches of the CUDA kernel since import (or since a caller reset it);
+# only the CUDA branch of quilt_prng_descent_lookup adds to it
+LAUNCHES = 0
+
+_LIB = None
+
+
+def _library():
+    """The built kernel library with its C signatures declared."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("quilt_prng_descent_lookup")
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        fn = lib.qkg_quilt_prng_descent_lookup
+        fn.argtypes = [i, u, u, p, i, p, i, p, p, i, i, i, i, i, p, p, p, p, p]
+        fn.restype = i
+        lib.qkg_error_string.argtypes = [i]
+        lib.qkg_error_string.restype = ctypes.c_char_p
+        lib.qkg_tables_in_smem.argtypes = [i, i, i]
+        lib.qkg_tables_in_smem.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def tables_in_shared_memory(table_cfg: torch.Tensor) -> bool:
+    """Whether the kernel keeps these (B, L) tables in shared memory."""
+    B, L = table_cfg.shape
+    return _library().qkg_tables_in_smem(table_cfg.device.index or 0, B, L) == 1
+
+
+def _check_cuda_inputs(gids, cum, table_cfg, table_node, a_tot, num_blocks):
+    dev = gids.device
+    for name, t, dtype in (
+        ("gids", gids, torch.int32),
+        ("cum", cum, torch.float32),
+        ("table_cfg", table_cfg, torch.int32),
+        ("table_node", table_node, torch.int32),
+    ):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, gids on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    d = cum.shape[0]
+    if cum.shape != (d, 4) or not 1 <= d <= 31:
+        raise ValueError(f"cum must be (d, 4) with 1 <= d <= 31, got {tuple(cum.shape)}")
+    if table_cfg.ndim != 2 or table_cfg.shape != table_node.shape or 0 in table_cfg.shape:
+        raise ValueError(
+            f"tables must be two equal non-empty (B, L), got "
+            f"{tuple(table_cfg.shape)} and {tuple(table_node.shape)}"
+        )
+    if not 1 <= num_blocks <= table_cfg.shape[0]:
+        raise ValueError(f"num_blocks={num_blocks} outside [1, B={table_cfg.shape[0]}]")
+    if gids.numel() * a_tot >= 2**31:
+        raise ValueError("gids.numel() * a_tot must stay below 2^31 rows")
+
+
+def quilt_prng_descent_lookup(
+    seed: Seed,
+    gids: torch.Tensor,
+    cum: torch.Tensor,
+    table_cfg: torch.Tensor,
+    table_node: torch.Tensor,
+    *,
+    a_tot: int,
+    num_blocks: int,
+    ranks: bool = False,
+):
+    """Fused descent + lookup over ``gids.numel() * a_tot`` rows.
+
+    On a CUDA tensor this launches the CUDA kernel on the current stream and
+    raises if the launch fails; on a CPU tensor it is the plain version.
+    Args as :func:`quilt_prng_descent_lookup_plain`; on CUDA ``gids`` and the
+    tables are contiguous int32 and ``cum`` float32, all on one device.
+    """
+    global LAUNCHES
+    dev = gids.device
+    if dev.type == "cpu":
+        return quilt_prng_descent_lookup_plain(
+            seed, gids, cum, table_cfg, table_node,
+            a_tot=a_tot, num_blocks=num_blocks, ranks=ranks,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    a_tot, num_blocks = int(a_tot), int(num_blocks)
+    gids = gids.reshape(-1)
+    _check_cuda_inputs(gids, cum, table_cfg, table_node, a_tot, num_blocks)
+    n = gids.numel() * a_tot
+    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
+    if n == 0:
+        return tuple(outs)
+    lib = _library()
+    B, L = table_cfg.shape
+    rc = lib.qkg_quilt_prng_descent_lookup(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        seed[0] & M32, seed[1] & M32,
+        gids.data_ptr(), gids.numel(), cum.data_ptr(), cum.shape[0],
+        table_cfg.data_ptr(), table_node.data_ptr(), B, L, a_tot, num_blocks,
+        int(bool(ranks)),
+        *(o.data_ptr() for o in outs),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        msg = lib.qkg_error_string(rc).decode()
+        raise RuntimeError(f"quilt_prng_descent_lookup launch failed: {msg} ({rc})")
+    LAUNCHES += 1
+    return tuple(outs)
