@@ -3,15 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from src/repro_torch/csrc, holds it against its plain
-PyTorch version on the card, checks a session on the card against the same
-session on the CPU, then drives the default MAGM session at full size
-(n = 2^15, THETA_1, mu = 0.5, d = 15: 49 block-pair graphs x 528,283
-candidates in one exact-cell round) and times it.  Exits non-zero, with no
-result line, when there is no CUDA device or any phase fails.
+Builds every CUDA kernel from src/repro_torch/csrc (one nvcc per source, all
+at once) and holds each against its plain PyTorch version on the card, then
+drives the port's paths through their public entry points, each with the
+launch counts set to 0 just before and read just after:
 
-Output, last three lines: the card's name and power limit as nvidia-smi
-reports them, one JSON object with every kernel of the main path, and
+- the default MAGM session at full size (n = 2^15, THETA_1, mu = 0.5,
+  d = 15: 49 block-pair graphs x 528,283 candidates in one exact-cell
+  round), checked against the same session on the CPU at n = 2^12;
+- the naive O(n^2) baseline on the session's F (1.07e9 Bernoulli trials in
+  256 tiles of 2048^2), with the expected edge count sum Q and its sigma
+  computed tile by tile through the magm_logprob kernel: the naive count
+  and the quilting count must both lie within 4 sigma of sum Q; the naive
+  baseline on the card against the CPU at n = 2^10;
+- MAGFIT's dense scoring (dense_expected_logprob, elbo_dense) through the
+  magm_logprob kernel;
+- the counter-PRNG KPGM edge batch (2^25 edges) through
+  quadrant_descent_prng.
+
+Exits non-zero, with no result line, when there is no CUDA device or any
+phase fails.  Output, last three lines: the card's name and power limit as
+nvidia-smi reports them, one JSON object with every kernel, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -23,6 +35,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -32,13 +45,23 @@ import torch  # noqa: E402
 
 from repro_torch.api import MAGMSampler, SamplerConfig  # noqa: E402
 from repro_torch.configs.magm_paper import DEFAULT_MU, THETA_1  # noqa: E402
-from repro_torch.core import kpgm, magm, prng, quilt  # noqa: E402
+from repro_torch.core import f32math, kpgm, magm, naive, prng, quilt  # noqa: E402
+from repro_torch.fit import magfit  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import bernoulli_tile as bt  # noqa: E402
+from repro_torch.kernels import magm_logprob as ml  # noqa: E402
 from repro_torch.kernels import quadrant_descent as qd  # noqa: E402
 
 FULL_LOG2_N = 15  # the largest paper configuration the exact path runs
 CHECK_LOG2_N = 12  # tables fit shared memory; small enough for the CPU
+NAIVE_TILE = 2048  # naive_sample's default tile
+NAIVE_CHECK_LOG2_N = 10  # the naive baseline on the card against the CPU
+BATCH_SLOTS = 1 << 25  # the KPGM edge batch (DEVICE_MAX_CANDIDATES)
+LOGQ_ATOL = 2e-4  # the reference's own log-Q tolerance (tests/test_kernels.py)
+BAND = 2e-4  # a Bernoulli compare may flip only where |log u - log q| <= BAND
 SEED = 0
+
+KERNELS = ("quilt_prng_descent_lookup", "quadrant_descent_prng", "magm_logprob", "bernoulli_tile")
 
 # H100 SXM peaks: HBM 3.35 TB/s (NVIDIA data sheet); 32-bit operations at
 # 128 lanes per SM x 132 SMs x 1.98 GHz = 33.5 T ops/s, half the 67 TFLOP/s
@@ -46,6 +69,8 @@ SEED = 0
 # FMA pipe beside the 64 INT32 lanes, so no mix of 32-bit ops goes faster
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 128 * 132 * 1.98e9
+FP32_FLOPS_PER_S = 67e12  # outside the tensor cores, an FMA counted as two
+SPIN_CYCLES_PER_S = 1.98e9  # SM clock at boost: a spin of this many cycles lasts >= 1 s
 
 
 def log(msg: str) -> None:
@@ -79,16 +104,45 @@ def round_inputs(plan: quilt.QuiltPlan, key):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events.
+
+    A spin kernel (``torch.cuda._sleep``) holds the stream while the host
+    enqueues the events and the calls, so a call whose host side (Python,
+    argument checks, ctypes) takes longer than its device work is timed by
+    the device work, not by the host.  A call that synchronises inside is
+    timed with its host side all the same."""
     fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * host_s * reps + 1e-3) * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled_kernel_ms(fn, reps: int, kernel: str):
+    """Mean device time per call of the CUDA kernels whose name holds
+    ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls; None
+    when the trace shows no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the profiler's note on clearing events per cycle
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / reps if us > 0 else None
 
 
 def kernel_bound_ms(plan: quilt.QuiltPlan, rows: int) -> tuple:
@@ -247,7 +301,288 @@ def phase_full_size(device) -> dict:
     return {
         "launches": launches["quilt_prng_descent_lookup"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
+    }, sampler, int(e.shape[0])
+
+
+def phase_build() -> None:
+    """Build every kernel, one nvcc per source, all started together."""
+    t0 = time.perf_counter()
+    _build.build_all(KERNELS)
+    log(f"build: {time.perf_counter() - t0:.2f}s wall for {len(KERNELS)} sources")
+    for name in KERNELS:
+        log(f"  {name}: nvcc {_build.BUILD_SECONDS[name]:.2f}s")
+        for line in _build.BUILD_LOG.get(name, "").splitlines():
+            log(f"    ptxas: {line}")
+    qd._library(), qd._prng_library(), ml._library(), bt._library()
+
+
+def tile_bound_ms(M: int, N: int, d: int, cell_bytes: int) -> tuple:
+    """Least time for a log-Q tile: its bytes (cell_bytes per output cell,
+    each attribute row read once) at the HBM rate, or its float32 work (d
+    FMAs per cell for the product, d for each of the M row and N column
+    terms, 3 adds per cell) at the float32 peak, whichever is larger."""
+    bytes_ = M * N * cell_bytes + (M + N) * d * 4 + 3 * d * 4 + 4
+    flops = 2 * M * N * d + 2 * (M + N) * d + 3 * M * N
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def descent_bound_ms(slots: int, d: int) -> tuple:
+    """Least time for quadrant_descent_prng: ~35 int32 operations per level
+    (counted as for quilt_prng_descent_lookup) plus ~10 per slot, or 8 B of
+    output per slot, whichever is larger."""
+    t_ops = slots * (35 * d + 10) / INT32_OPS_PER_S * 1e3
+    t_bytes = (slots * 8 + d * 16) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def band_mismatches(got, want, logu, logq) -> tuple:
+    """(mismatches, band cells) of two masks; raises on a mismatch outside
+    the band |logu - logq| <= BAND."""
+    diff = got != want
+    band = (logu.double() - logq.double()).abs() <= BAND
+    outside = int((diff & ~band).sum())
+    if outside:
+        raise AssertionError(f"{outside} mask cells differ outside the band")
+    return int(diff.sum()), int(band.sum())
+
+
+def tile_inputs(M: int, N: int, d: int, device, seed: int):
+    """Hard attribute rows, THETA_1's packed terms and a log-uniform draw."""
+    g = torch.Generator().manual_seed(seed)
+    fs = (torch.rand(M, d, generator=g) < DEFAULT_MU).float().to(device)
+    ft = (torch.rand(N, d, generator=g) < DEFAULT_MU).float().to(device)
+    packed = ops._packed_bilinear(magm.make_params(THETA_1, DEFAULT_MU, d).thetas, device)
+    logu = f32math.log(prng.uniform(prng.PRNGKey(seed), (M, N), minval=1e-38, maxval=1.0, device=device))
+    return fs, ft, packed, logu
+
+
+def phase_tiles_vs_plain(device) -> dict:
+    """magm_logprob and bernoulli_tile against their plain versions at a
+    ragged shape and at the naive path's tile; timings at the tile."""
+    errs, flips = [], 0
+    for M, N, d in ((300, 513, 20), (NAIVE_TILE, NAIVE_TILE, FULL_LOG2_N)):
+        fs, ft, packed, logu = tile_inputs(M, N, d, device, seed=M + d)
+        got = ml.magm_logprob(fs, ft, *packed)
+        want = ml.magm_logprob_plain(fs, ft, *packed)
+        mask = bt.bernoulli_tile(fs, ft, *packed, logu)
+        plain = bt.bernoulli_tile_plain(fs, ft, *packed, logu)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= LOGQ_ATOL:
+            raise AssertionError(f"magm_logprob differs from plain by {err} at {M}x{N}x{d}")
+        mism, band = band_mismatches(mask, plain, logu, want)
+        errs.append(err)
+        flips = max(flips, int((mask.int() - plain.int()).abs().max()))
+        log(f"tiles {M}x{N}x{d}: magm_logprob max_abs_err={err} bernoulli_tile "
+            f"mismatches={mism} (all inside the band of {band} cells) ones={float(mask.float().mean())}")
+    # timings at the naive tile (the last inputs)
+    M, N, d = fs.shape[0], ft.shape[0], fs.shape[1]
+    u, v, w, c0 = packed
+    a = torch.cat([fs * w, fs @ u[:, None], torch.ones(M, 1, device=device)], dim=1)
+    b = torch.cat([ft, torch.ones(N, 1, device=device), (ft @ v + c0)[:, None]], dim=1)
+    lib = float((a @ b.T - want).abs().max())
+    out = {
+        "magm_logprob": {
+            "max_abs_err": max(errs),
+            "ms": cuda_ms(lambda: ml.magm_logprob(fs, ft, *packed), reps=50),
+            "plain_ms": cuda_ms(lambda: ml.magm_logprob_plain(fs, ft, *packed), reps=10),
+            # one float32 matmul of the augmented operands computes the same tile
+            "library_ms": cuda_ms(lambda: a @ b.T, reps=50),
+        },
+        "bernoulli_tile": {
+            "max_abs_err": flips,
+            "ms": cuda_ms(lambda: bt.bernoulli_tile(fs, ft, *packed, logu), reps=50),
+            "plain_ms": cuda_ms(lambda: bt.bernoulli_tile_plain(fs, ft, *packed, logu), reps=10),
+            # no single PyTorch call compares a bilinear form with a tile
+            "library_ms": None,
+        },
     }
+    out["magm_logprob"]["bound_ms"], out["magm_logprob"]["bound_by"] = tile_bound_ms(M, N, d, 4)
+    out["bernoulli_tile"]["bound_ms"], out["bernoulli_tile"]["bound_by"] = tile_bound_ms(M, N, d, 5)
+    prof = {
+        "magm_logprob": profiled_kernel_ms(lambda: ml.magm_logprob(fs, ft, *packed), 20, "magm_logprob_kernel"),
+        "bernoulli_tile": profiled_kernel_ms(lambda: bt.bernoulli_tile(fs, ft, *packed, logu), 20,
+                                             "bernoulli_tile_kernel"),
+    }
+    log(f"timing tile {M}x{N}x{d}: {json.dumps(out)} library_max_abs_err={lib} "
+        f"profiler_kernel_ms={json.dumps(prof)}")
+    return out
+
+
+def batch_thetas() -> torch.Tensor:
+    return magm.make_params(THETA_1, DEFAULT_MU, FULL_LOG2_N).thetas
+
+
+def phase_descent_prng(device) -> dict:
+    """quadrant_descent_prng against its plain version at 2^25 slots, d = 15
+    (bit-identical), then the KPGM edge batch through its entry point."""
+    key = prng.PRNGKey(SEED + 30)
+    seed = ops.counter_seed(key)
+    cum = ops._batch_cumprobs(batch_thetas()).to(device)
+    got = qd.quadrant_descent_prng(seed, cum, num_slots=BATCH_SLOTS)
+    want = qd.quadrant_descent_prng_plain(seed, cum, num_slots=BATCH_SLOTS)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"quadrant_descent_prng != plain: {int((g != w).sum())} slots differ")
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    log(f"quadrant_descent_prng == plain: slots={BATCH_SLOTS} d={FULL_LOG2_N}")
+
+    ops.reset_kernel_launches()
+    src, dst = ops.sample_edge_batch_prng(key, batch_thetas(), BATCH_SLOTS, device=device)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()["quadrant_descent_prng"]
+    if launches < 1:
+        raise AssertionError("sample_edge_batch_prng did not launch quadrant_descent_prng")
+    if not (torch.equal(src, got[0]) and torch.equal(dst, got[1])):
+        raise AssertionError("sample_edge_batch_prng differs from the checked kernel run")
+    n = 1 << FULL_LOG2_N
+    if int(src.min()) < 0 or int(src.max()) >= n or int(dst.min()) < 0 or int(dst.max()) >= n:
+        raise AssertionError("edge batch ids outside [0, 2^d)")
+    bound, bound_by = descent_bound_ms(BATCH_SLOTS, FULL_LOG2_N)
+    prof = profiled_kernel_ms(lambda: qd.quadrant_descent_prng(seed, cum, num_slots=BATCH_SLOTS), 5,
+                              "quadrant_descent_prng_kernel")
+    log(f"quadrant_descent_prng profiler_kernel_ms={prof}")
+    out = {
+        "launches": launches, "max_abs_err": err,
+        "ms": cuda_ms(lambda: qd.quadrant_descent_prng(seed, cum, num_slots=BATCH_SLOTS), reps=20),
+        "plain_ms": cuda_ms(lambda: qd.quadrant_descent_prng_plain(seed, cum, num_slots=BATCH_SLOTS), reps=2),
+        "bound_ms": bound, "bound_by": bound_by,
+        # no PyTorch call computes the counter-hash descent
+        "library_ms": None,
+    }
+    log(f"edge batch: launches={launches} distinct_src={int(torch.unique(src).numel())} "
+        f"timing {json.dumps(out)}")
+    return out
+
+
+def naive_stage_ms(F: np.ndarray, params, device) -> None:
+    """Device ms of each stage of one warm 2048^2 naive tile, timed one by one."""
+    Fd = torch.from_numpy(F[:2 * NAIVE_TILE]).to(device=device, dtype=torch.float32)
+    fs, ft = Fd[:NAIVE_TILE], Fd[NAIVE_TILE:]
+    packed = ops._packed_bilinear(params.thetas, device)
+    key = prng.split(prng.PRNGKey(SEED + 40))[1]
+    shape = (NAIVE_TILE, NAIVE_TILE)
+    u = prng.uniform(key, shape, minval=1e-38, maxval=1.0, device=device)
+    logu = f32math.log(u)
+    mask = bt.bernoulli_tile(fs, ft, *packed, logu)
+    idx = torch.nonzero(mask)
+    stages = {
+        "uniforms": lambda: prng.uniform(key, shape, minval=1e-38, maxval=1.0, device=device),
+        "f32math_log": lambda: f32math.log(u),
+        "kernel": lambda: bt.bernoulli_tile(fs, ft, *packed, logu),
+        "nonzero": lambda: torch.nonzero(mask),
+        "copy_to_host": lambda: idx.cpu(),
+    }
+    log(f"naive stage_ms per {NAIVE_TILE}^2 tile (x256 tiles at n=2^15): "
+        + " ".join(f"{k}={cuda_ms(f, reps=5)}" for k, f in stages.items()))
+
+
+def phase_naive_full_size(sampler, quilt_edges: int) -> dict:
+    """The naive baseline on the full-size session's F: sum Q and sigma
+    through the magm_logprob kernel tile by tile, then naive_sample; both
+    counts within 4 sigma of sum Q."""
+    device = sampler.device
+    F, params = sampler.F, sampler.config.params
+    n = F.shape[0]
+    tiles = (-(-n // NAIVE_TILE)) ** 2
+    Fd = torch.from_numpy(F).to(device=device, dtype=torch.float32)
+
+    ops.reset_kernel_launches()
+    s1 = torch.zeros((), dtype=torch.float64, device=device)
+    s2 = torch.zeros((), dtype=torch.float64, device=device)
+    for i0 in range(0, n, NAIVE_TILE):
+        for j0 in range(0, n, NAIVE_TILE):
+            q = torch.exp(ops.magm_logprob(Fd[i0:i0 + NAIVE_TILE], Fd[j0:j0 + NAIVE_TILE], params.thetas).double())
+            s1 += q.sum()
+            s2 += (q * (1.0 - q)).sum()
+    torch.cuda.synchronize()
+    logprob_launches = ops.kernel_launches()["magm_logprob"]
+    mean, sigma = float(s1), float(s2) ** 0.5
+
+    ops.reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    e = naive.naive_sample(prng.PRNGKey(SEED + 20), params, F, tile=NAIVE_TILE, device=device)
+    cold_s = time.perf_counter() - t0
+    tile_launches = ops.kernel_launches()["bernoulli_tile"]
+    peak = torch.cuda.max_memory_allocated()
+    if logprob_launches != tiles or tile_launches != tiles:
+        raise AssertionError(f"launches magm_logprob={logprob_launches} bernoulli_tile={tile_launches}, "
+                             f"expected {tiles} each")
+    if e.ndim != 2 or e.shape[1] != 2 or e.shape[0] == 0 or e.min() < 0 or e.max() >= n:
+        raise AssertionError(f"bad naive edge array {e.shape}")
+    if np.unique(e[:, 0] * n + e[:, 1]).size != e.shape[0]:
+        raise AssertionError("duplicate naive edges")
+    z_naive, z_quilt = (e.shape[0] - mean) / sigma, (quilt_edges - mean) / sigma
+    log(f"naive n=2^{FULL_LOG2_N}: sum_Q={mean} sigma={sigma} naive_edges={e.shape[0]} z={z_naive} "
+        f"quilt_edges={quilt_edges} z={z_quilt} tiles={tiles} launches magm_logprob={logprob_launches} "
+        f"bernoulli_tile={tile_launches} cold_s={cold_s} peak_mem_bytes={peak}")
+    if abs(z_naive) > 4 or abs(z_quilt) > 4:
+        raise AssertionError("an edge count lies outside 4 sigma of sum Q")
+
+    walls, events = [], []
+    for i in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        naive.naive_sample(prng.PRNGKey(SEED + 21 + i), params, F, tile=NAIVE_TILE, device=device)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        events.append(start.elapsed_time(end))
+    log(f"timing naive_sample n=2^{FULL_LOG2_N}: ms_median3={statistics.median(events)} "
+        f"ms_events={events} ms_host_clock={walls}")
+    naive_stage_ms(F, params, device)
+    return {"bernoulli_tile": tile_launches, "magm_logprob": logprob_launches}
+
+
+def phase_naive_cross_device(device) -> None:
+    """naive_sample at n = 2^10 on the card and on the CPU: the same key walk
+    and draws, so equal edges outside the band."""
+    n = 1 << NAIVE_CHECK_LOG2_N
+    params = magm.make_params(THETA_1, DEFAULT_MU, NAIVE_CHECK_LOG2_N)
+    F = magm.sample_attributes(prng.PRNGKey(SEED + 50), n, params.mu).numpy()
+    key = prng.PRNGKey(SEED + 51)
+    got = naive.naive_sample(key, params, F, device=device)
+    want = naive.naive_sample(key, params, F, device="cpu")
+    adj = [torch.zeros((n, n), dtype=torch.bool) for _ in range(2)]
+    for a, e in zip(adj, (got, want)):
+        a[torch.from_numpy(e[:, 0]), torch.from_numpy(e[:, 1])] = True
+    _, sub = prng.split(key)  # one tile: the walk's first subkey
+    logu = f32math.log(prng.uniform(sub, (n, n), minval=1e-38, maxval=1.0))
+    logq = magm.log_edge_prob(torch.from_numpy(F), torch.from_numpy(F), params.thetas)
+    mism, band = band_mismatches(adj[0], adj[1], logu, logq)
+    log(f"naive cross-device n=2^{NAIVE_CHECK_LOG2_N}: edges cuda={got.shape[0]} cpu={want.shape[0]} "
+        f"mismatches={mism} (inside the band of {band} cells)")
+
+
+def phase_dense_scoring(device) -> None:
+    """MAGFIT's dense scoring through the magm_logprob kernel: the (n, n)
+    E_q[log Q] at n = 2^13, and elbo_dense at n = 512, against the plain
+    products on the card."""
+    rng = np.random.default_rng(SEED + 60)
+    thetas = magm.make_params(THETA_1, DEFAULT_MU, FULL_LOG2_N).thetas
+    phi = rng.uniform(0.0, 1.0, (1 << 13, FULL_LOG2_N)).astype(np.float32)
+    ops.reset_kernel_launches()
+    got = magfit.dense_expected_logprob(phi, thetas, use_kernel=True, device=device)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()["magm_logprob"]
+    want = magfit.dense_expected_logprob(phi, thetas, use_kernel=False, device=device)
+    err = float((got - want).abs().max())
+    if launches < 1 or not torch.isfinite(got).all() or not err <= LOGQ_ATOL:
+        raise AssertionError(f"dense scoring: launches={launches} max_abs_err={err}")
+    n = 512
+    mu = np.full(FULL_LOG2_N, DEFAULT_MU, dtype=np.float32)
+    edges = rng.integers(0, n, (4 * n, 2))
+    e_kernel = float(magfit.elbo_dense(phi[:n], thetas, mu, edges, n, use_kernel=True, device=device))
+    e_plain = float(magfit.elbo_dense(phi[:n], thetas, mu, edges, n, device=device))
+    if not abs(e_kernel - e_plain) <= 1e-5 * abs(e_plain):
+        raise AssertionError(f"elbo_dense kernel {e_kernel} vs plain {e_plain}")
+    log(f"dense scoring n=2^13: launches magm_logprob={launches} max_abs_err={err}; "
+        f"elbo_dense n={n}: kernel={e_kernel} plain={e_plain}")
 
 
 def main() -> int:
@@ -259,29 +594,54 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    qd._library()
-    log(f"build: {time.perf_counter() - t0:.2f}s (nvcc {_build.BUILD_SECONDS['quilt_prng_descent_lookup']:.2f}s)")
-    for line in _build.BUILD_LOG.get("quilt_prng_descent_lookup", "").splitlines():
-        log(f"  ptxas: {line}")
-
+    phase_build()
     check = phase_kernel_vs_plain(device)
+    tiles = phase_tiles_vs_plain(device)
+    descent = phase_descent_prng(device)
     phase_cross_device(device)
-    full = phase_full_size(device)
+    full, sampler, quilt_edges = phase_full_size(device)
+    naive_launches = phase_naive_full_size(sampler, quilt_edges)
+    phase_naive_cross_device(device)
+    phase_dense_scoring(device)
 
-    kernels = [{
-        "name": "quilt_prng_descent_lookup",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/quilt_prng_descent_lookup.cu",
-        "replaces": "src/repro/kernels/quadrant_descent.py:516",
-        "launches": full["launches"],
-        "max_abs_err": check["max_abs_err"],
-        "ms": full["ms"],
-        "plain_ms": full["plain_ms"],
-        "bound_ms": full["bound_ms"],
-        "bound_by": full["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes this function
-    }]
+    kernels = [
+        {
+            "name": "quilt_prng_descent_lookup",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/quilt_prng_descent_lookup.cu",
+            "replaces": "src/repro/kernels/quadrant_descent.py:516",
+            "launches": full["launches"],
+            "max_abs_err": check["max_abs_err"],
+            "ms": full["ms"],
+            "plain_ms": full["plain_ms"],
+            "bound_ms": full["bound_ms"],
+            "bound_by": full["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes this function
+        },
+        {
+            "name": "quadrant_descent_prng",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/quadrant_descent_prng.cu",
+            "replaces": "src/repro/kernels/quadrant_descent.py:390",
+            **descent,
+        },
+        {
+            "name": "magm_logprob",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/magm_logprob.cu",
+            "replaces": "src/repro/kernels/magm_logprob.py:46",
+            "launches": naive_launches["magm_logprob"],
+            **tiles["magm_logprob"],
+        },
+        {
+            "name": "bernoulli_tile",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/bernoulli_tile.cu",
+            "replaces": "src/repro/kernels/bernoulli_tile.py:44",
+            "launches": naive_launches["bernoulli_tile"],
+            **tiles["bernoulli_tile"],
+        },
+    ]
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -13,7 +13,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import prng
+from repro_torch.core import f32math, prng
+from repro_torch.core.kpgm import _prod_levels, _sum_levels
+
+# log Q is a float32 product of attributes and log-thetas; TF32 would keep
+# ~3 decimal digits of it, so matrix products on the card run in full float32
+torch.backends.cuda.matmul.allow_tf32 = False
 
 
 class MAGMParams(NamedTuple):
@@ -76,3 +81,66 @@ def configs_from_attributes(F: torch.Tensor) -> torch.Tensor:
         raise ValueError("configs are int32; require d <= 31")
     pows = torch.ones((), dtype=torch.int64) << torch.arange(d - 1, -1, -1)
     return (F.to(torch.int64) * pows.to(F.device)).sum(dim=1).to(torch.int32)
+
+
+class BilinearLogTheta(NamedTuple):
+    """log Q decomposition:  logQ = c0 + F u 1^T + 1 (F v)^T + F diag(w) F^T."""
+
+    c0: torch.Tensor  # scalar: sum_k log t00
+    u: torch.Tensor  # (d,)  source-bit linear term
+    v: torch.Tensor  # (d,)  target-bit linear term
+    w: torch.Tensor  # (d,)  interaction term
+
+
+def bilinear_decompose(thetas: torch.Tensor, eps: float = 1e-30) -> BilinearLogTheta:
+    """The reference's float32 terms bit for bit: its log (``f32math.log``)
+    of the clipped thetas, and c0 summed from level 0 up, as its compiled
+    reduction runs."""
+    logt = f32math.log(torch.clamp(torch.as_tensor(thetas, dtype=torch.float32), eps, 1.0))
+    t00, t01 = logt[:, 0, 0], logt[:, 0, 1]
+    t10, t11 = logt[:, 1, 0], logt[:, 1, 1]
+    return BilinearLogTheta(
+        c0=_sum_levels(t00),
+        u=t10 - t00,
+        v=t01 - t00,
+        w=t11 + t00 - t01 - t10,
+    )
+
+
+def log_edge_prob(F_src: torch.Tensor, F_dst: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
+    """(ns, nt) float32 log Q between rows of F_src and rows of F_dst, on
+    F_src's device (plain products; the tile kernel is ``ops.magm_logprob``)."""
+    fs = torch.as_tensor(F_src).to(torch.float32)
+    ft = torch.as_tensor(F_dst).to(device=fs.device, dtype=torch.float32)
+    bl = BilinearLogTheta(*(t.to(fs.device) for t in bilinear_decompose(thetas)))
+    inter = (fs * bl.w[None, :]) @ ft.T
+    return bl.c0 + (fs @ bl.u)[:, None] + (ft @ bl.v)[None, :] + inter
+
+
+def edge_prob_matrix(F: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
+    """Exact dense Q (paper eq. 7), O(n^2 d): tests and small n only."""
+    return f32math.exp(log_edge_prob(F, F, thetas))
+
+
+def log_prob_pairs(
+    F: torch.Tensor, thetas: torch.Tensor, src: torch.Tensor, dst: torch.Tensor
+) -> torch.Tensor:
+    """log Q_{src, dst} for index pairs, O(E d)."""
+    F = torch.as_tensor(F)
+    bl = BilinearLogTheta(*(t.to(F.device) for t in bilinear_decompose(thetas)))
+    fs = F[src].to(torch.float32)
+    ft = F[dst].to(torch.float32)
+    return bl.c0 + fs @ bl.u + ft @ bl.v + torch.sum(fs * bl.w[None, :] * ft, dim=1)
+
+
+def expected_edges(params: MAGMParams, n: int) -> float:
+    """E|E| = sum_ij Q_ij = n^2 prod_k E_ab theta^(k)[a, b], a, b ~ mu_k."""
+    mu = params.mu.to(torch.float32)
+    th = params.thetas.to(torch.float32)
+    per_level = (
+        (1 - mu) * (1 - mu) * th[:, 0, 0]
+        + (1 - mu) * mu * th[:, 0, 1]
+        + mu * (1 - mu) * th[:, 1, 0]
+        + mu * mu * th[:, 1, 1]
+    )
+    return float(n * n * _prod_levels(per_level))

@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from repro_torch.core import f32math
+
 M32 = 0xFFFFFFFF
 _KS_PARITY = 0x1BD11BDA
 _ROT0 = (13, 15, 26, 6)
@@ -120,9 +122,29 @@ def bits(key: Key, shape: Shape = (), dtype: str = "uint32", *, device=None) -> 
     raise ValueError(f"dtype must be 'uint32' or 'uint64', got {dtype!r}")
 
 
-def uniform(key: Key, shape: Shape = (), *, device=None) -> torch.Tensor:
-    """float32 uniforms in ``[0, 1)``, as ``jax.random.uniform(key, shape)``:
-    the top 23 bits become the mantissa of a float in ``[1, 2)``, minus 1."""
+def _f32_daz(x: float) -> float:
+    """``x`` rounded to float32, a subnormal read as zero (the reference's
+    compiled CPU code runs with denormals-are-zero)."""
+    x = float(torch.tensor(x, dtype=torch.float32))
+    return x * 0.0 if abs(x) < f32math._MIN_NORMAL else x
+
+
+def uniform(
+    key: Key, shape: Shape = (), *, minval: float = 0.0, maxval: float = 1.0, device=None
+) -> torch.Tensor:
+    """float32 uniforms in ``[minval, maxval)``, as ``jax.random.uniform(key,
+    shape, minval=minval, maxval=maxval)``: the top 23 bits become the
+    mantissa of a float ``f`` in ``[1, 2)``, and the result is
+    ``max(minval, (f - 1) * (maxval - minval) + minval)``.
+
+    The reference runs this with denormals flushed to zero, so a subnormal
+    ``minval`` (the naive sampler's 1e-38) counts as 0 and a zero draw stays
+    0; so it does here, and the bits equal the reference's on every device.
+    """
+    lo, hi = _f32_daz(minval), _f32_daz(maxval)
+    span = _f32_daz(hi - lo)
     b = bits(key, shape, "uint32", device=device)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f, 0.0)
+    if (span, lo) != (1.0, 0.0):  # else exact: f * 1 + 0 = f
+        f = f32math._ftz(f32math.fma(f, span, lo))  # fused, as the reference's code
+    return torch.clamp_min(f, lo)

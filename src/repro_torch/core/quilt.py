@@ -22,6 +22,9 @@ Runs that the reference takes elsewhere raise ``NotImplementedError`` and
 name the ROADMAP item that will port them: the legacy ranked rounds (an
 explicit target, or a budget over ``DEVICE_MAX_CANDIDATES``), the host
 backend, ball dropping, fused batches and meshes.
+
+:func:`naive_reference_sample` is the O(n^2) exact oracle the quilting
+sampler is tested against.
 """
 
 from __future__ import annotations
@@ -391,3 +394,15 @@ def quilt_run(
     counts_h = counts.cpu().numpy().astype(np.int64)
     keep = take & (snode >= 0) & (dnode >= 0)
     return QuiltRun(plan, counts_h, snode, dnode, keep, budget)
+
+
+def naive_reference_sample(key: torch.Tensor, params: magm.MAGMParams, F, *, device=None) -> np.ndarray:
+    """O(n^2) exact sampler (the paper's baseline) on ``device`` (default
+    ``"cuda"``; raises without a card); small n only.  The dense Q in
+    float32 against one (n, n) uniform draw, as the reference computes it;
+    returns (E, 2) int64 on the host, row-major."""
+    dev = resolve_device(device)
+    F = F.cpu().numpy() if isinstance(F, torch.Tensor) else np.asarray(F)
+    Q = magm.edge_prob_matrix(torch.from_numpy(np.ascontiguousarray(F)).to(dev), params.thetas)
+    u = prng.uniform(key, tuple(Q.shape), device=dev)
+    return torch.nonzero(u < Q).cpu().numpy()

@@ -32,33 +32,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "counter_hash.cuh"
+
 namespace {
 
-constexpr uint32_t kChannels = 64;  // PRNG_CHANNELS
+using qkg::counter_hash;
+using qkg::counter_u01;
+using qkg::kChannels;
+using qkg::kMaxLevels;
+
 constexpr uint32_t kRank0 = kChannels - 2;
-constexpr uint32_t kMixA = 0x7FEB352Du;
-constexpr uint32_t kMixB = 0x846CA68Bu;
-constexpr uint32_t kWordC = 0x9E3779B9u;
-constexpr uint32_t kGidC = 0x85EBCA6Bu;
 constexpr int kThreads = 512;
-constexpr int kMaxLevels = 31;
 constexpr size_t kCumBytes = 4 * 32 * sizeof(float);  // (d <= 31, 4) f32, 16 B aligned
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= kMixA;
-  x ^= x >> 15;
-  x *= kMixB;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t counter_hash(uint32_t s0, uint32_t s1,
-                                                 uint32_t gid, uint32_t word) {
-  uint32_t x = mix32(word * kWordC + s0);
-  x ^= gid * kGidC + s1;
-  return mix32(x);
-}
 
 template <bool kSmem>
 __device__ __forceinline__ int32_t load(const int32_t* p) {
@@ -128,13 +113,9 @@ __global__ void __launch_bounds__(kThreads)
     const uint32_t base = static_cast<uint32_t>(slot) * kChannels;
     int32_t sc = 0, dc = 0;
     for (int k = 0; k < d; ++k) {
-      const uint32_t h = counter_hash(s0, s1, static_cast<uint32_t>(gid),
-                                      base + static_cast<uint32_t>(k));
-      const float u = static_cast<float>(h >> 8) * 5.9604644775390625e-08f;
-      const int quad = (u >= s_cum[4 * k]) + (u >= s_cum[4 * k + 1]) +
-                       (u >= s_cum[4 * k + 2]);
-      sc = (sc << 1) | (quad >> 1);
-      dc = (dc << 1) | (quad & 1);
+      const float u = counter_u01(s0, s1, static_cast<uint32_t>(gid),
+                                  base + static_cast<uint32_t>(k));
+      qkg::descend_level(u, s_cum + 4 * k, &sc, &dc);
     }
     int kb, lb;
     if (kRanks) {

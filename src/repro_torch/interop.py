@@ -3,7 +3,9 @@
 A sampler has no weights; what the two packages must share to give the
 same graph is the initiator thetas, the attribute matrix and the key.
 :func:`from_reference` takes them as the numpy arrays the JAX package
-holds and returns the port's counterparts.
+holds and returns the port's counterparts.  MAGFIT's state goes the same
+way: its soft attributes ``phi`` ((n, d) float32 Bernoulli means) take the
+place of the hard attributes and come back unchanged.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ def from_reference(
 ) -> Tuple[magm.MAGMParams, np.ndarray, torch.Tensor]:
     """``(params, F, key)`` of the port from the reference's ``(d, 2, 2)``
     float32 thetas, ``(n, d)`` attributes and raw uint32 key words
-    (``jax.random.key_data``).  ``mu`` defaults to F's column means; it is
-    used only when a session draws attributes itself."""
+    (``jax.random.key_data``).  F is returned as given, dtype and values:
+    hard int8 bits for a sampler, or MAGFIT's float32 soft attributes phi.
+    ``mu`` defaults to F's column means; it is used only when a session
+    draws attributes itself."""
     th = np.asarray(thetas, dtype=np.float32)
     if th.ndim != 3 or th.shape[1:] != (2, 2):
         raise ValueError(f"thetas must be (d, 2, 2), got {th.shape}")

@@ -1,5 +1,6 @@
-"""Counter-PRNG quadrant descent + per-block lookup: the CUDA kernel's
-wrapper, its plain PyTorch version, and the counter-hash family.
+"""Counter-PRNG quadrant descent, with and without the per-block lookup:
+the CUDA kernels' wrappers, their plain PyTorch versions, and the
+counter-hash family.
 
 Candidate row ``s`` of graph ``g`` draws its level-``k`` uniform from
 ``counter_u01(seed, g, s * PRNG_CHANNELS + k)``, a pure function of the round
@@ -12,6 +13,9 @@ with ``& 0xFFFFFFFF`` masks, which PyTorch supports on every device.
 :func:`quilt_prng_descent_lookup` runs the CUDA kernel
 (``csrc/quilt_prng_descent_lookup.cu``) on a CUDA tensor and its plain
 version :func:`quilt_prng_descent_lookup_plain` on a CPU tensor.
+:func:`quadrant_descent_prng` (``csrc/quadrant_descent_prng.cu``, plain
+version :func:`quadrant_descent_prng_plain`) is the plain KPGM descent of
+a batch of slots of graph 0, with no lookup.
 """
 
 from __future__ import annotations
@@ -166,11 +170,14 @@ def quilt_prng_descent_lookup_plain(
     return scfg.to(torch.int32), dcfg.to(torch.int32), snode, dnode
 
 
-# launches of the CUDA kernel since import (or since a caller reset it);
-# only the CUDA branch of quilt_prng_descent_lookup adds to it
+# launches of each CUDA kernel since import (or since a caller reset it);
+# only the CUDA branch of quilt_prng_descent_lookup adds to LAUNCHES, only
+# that of quadrant_descent_prng to PRNG_LAUNCHES
 LAUNCHES = 0
+PRNG_LAUNCHES = 0
 
 _LIB = None
+_PRNG_LIB = None
 
 
 def _library():
@@ -196,6 +203,16 @@ def tables_in_shared_memory(table_cfg: torch.Tensor) -> bool:
     return _library().qkg_tables_in_smem(table_cfg.device.index or 0, B, L) == 1
 
 
+def _check_cum(cum: torch.Tensor) -> None:
+    if cum.dtype != torch.float32:
+        raise TypeError(f"cum must be float32, got {cum.dtype}")
+    if not cum.is_contiguous():
+        raise ValueError("cum must be contiguous")
+    d = cum.shape[0]
+    if cum.shape != (d, 4) or not 1 <= d <= 31:
+        raise ValueError(f"cum must be (d, 4) with 1 <= d <= 31, got {tuple(cum.shape)}")
+
+
 def _check_cuda_inputs(gids, cum, table_cfg, table_node, a_tot, num_blocks):
     dev = gids.device
     for name, t, dtype in (
@@ -210,9 +227,7 @@ def _check_cuda_inputs(gids, cum, table_cfg, table_node, a_tot, num_blocks):
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    d = cum.shape[0]
-    if cum.shape != (d, 4) or not 1 <= d <= 31:
-        raise ValueError(f"cum must be (d, 4) with 1 <= d <= 31, got {tuple(cum.shape)}")
+    _check_cum(cum)
     if table_cfg.ndim != 2 or table_cfg.shape != table_node.shape or 0 in table_cfg.shape:
         raise ValueError(
             f"tables must be two equal non-empty (B, L), got "
@@ -261,7 +276,7 @@ def quilt_prng_descent_lookup(
     lib = _library()
     B, L = table_cfg.shape
     rc = lib.qkg_quilt_prng_descent_lookup(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        _build.device_index(dev),
         seed[0] & M32, seed[1] & M32,
         gids.data_ptr(), gids.numel(), cum.data_ptr(), cum.shape[0],
         table_cfg.data_ptr(), table_node.data_ptr(), B, L, a_tot, num_blocks,
@@ -274,3 +289,86 @@ def quilt_prng_descent_lookup(
         raise RuntimeError(f"quilt_prng_descent_lookup launch failed: {msg} ({rc})")
     LAUNCHES += 1
     return tuple(outs)
+
+
+_TPU_NATIVE = (
+    "tpu_native=True (the TPU's hardware PRNG, _prng_native_kernel) is not "
+    "ported yet (ROADMAP queue 2: an in-kernel Philox variant held to the "
+    "3-sigma suite)"
+)
+
+
+def quadrant_descent_prng_plain(
+    seed: Seed, cum: torch.Tensor, *, num_slots: int, chunk: int = 1 << 20
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch, on ``cum``'s device.
+
+    Slot ``s`` descends with the uniforms of channels 0..d-1 of graph 0,
+    ``counter_u01(seed, 0, s * PRNG_CHANNELS + k)``.  Returns int32 ``(src,
+    dst)`` of ``num_slots`` candidates; slots go ``chunk`` at a time, so
+    memory stays O(num_slots).
+    """
+    s0, s1 = seed
+    dev = cum.device
+    num_slots = int(num_slots)
+    src = torch.empty(num_slots, dtype=torch.int32, device=dev)
+    dst = torch.empty(num_slots, dtype=torch.int32, device=dev)
+    gid = torch.zeros((), dtype=torch.int64, device=dev)
+    for a in range(0, num_slots, chunk):
+        b = min(a + chunk, num_slots)
+        slot = torch.arange(a, b, dtype=torch.int64, device=dev)
+        src[a:b], dst[a:b] = _descend_body(descent_uniforms(s0, s1, gid, slot, cum.shape[0]), cum)
+    return src, dst
+
+
+def _prng_library():
+    """The built kernel library of quadrant_descent_prng."""
+    global _PRNG_LIB
+    if _PRNG_LIB is None:
+        lib = _build.load("quadrant_descent_prng")
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        lib.qkg_quadrant_descent_prng.argtypes = [i, u, u, p, i, i, p, p, p]
+        lib.qkg_quadrant_descent_prng.restype = i
+        lib.qkg_error_string.argtypes = [i]
+        lib.qkg_error_string.restype = ctypes.c_char_p
+        _PRNG_LIB = lib
+    return _PRNG_LIB
+
+
+def quadrant_descent_prng(
+    seed: Seed, cum: torch.Tensor, *, num_slots: int, tpu_native: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Counter-PRNG quadrant descent of ``num_slots`` candidates: int32
+    ``(src, dst)`` configs.
+
+    On a CUDA tensor this launches the CUDA kernel on the current stream and
+    raises if the launch fails; on a CPU tensor it is the plain version.
+    ``tpu_native=True`` raises ``NotImplementedError``.
+    """
+    global PRNG_LAUNCHES
+    if tpu_native:
+        raise NotImplementedError(_TPU_NATIVE)
+    dev = cum.device
+    if dev.type == "cpu":
+        return quadrant_descent_prng_plain(seed, cum, num_slots=num_slots)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    _check_cum(cum)
+    n = int(num_slots)
+    if not 0 <= n < 2**31:
+        raise ValueError(f"num_slots must lie in [0, 2^31), got {n}")
+    src = torch.empty(n, dtype=torch.int32, device=dev)
+    dst = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return src, dst
+    lib = _prng_library()
+    rc = lib.qkg_quadrant_descent_prng(
+        _build.device_index(dev),
+        seed[0] & M32, seed[1] & M32, cum.data_ptr(), cum.shape[0], n,
+        src.data_ptr(), dst.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        msg = lib.qkg_error_string(rc).decode()
+        raise RuntimeError(f"quadrant_descent_prng launch failed: {msg} ({rc})")
+    PRNG_LAUNCHES += 1
+    return src, dst

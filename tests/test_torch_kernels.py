@@ -11,7 +11,7 @@ import torch
 
 from test_torch_reference import cuda_device, ref  # noqa: F401  (fixtures)
 
-from repro_torch.core import kpgm, partition
+from repro_torch.core import kpgm, partition, prng
 from repro_torch.kernels import ops
 from repro_torch.kernels import quadrant_descent as qd
 
@@ -168,3 +168,92 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
         qd.quilt_prng_descent_lookup(
             SEED, gids.int(), cum.to(cuda_device), cfg, node, a_tot=8, num_blocks=part.B + 1
         )
+
+
+# --- quadrant_descent_prng: the plain KPGM descent with counter uniforms ---
+
+
+def _batch_thetas(d, seed):
+    return np.random.default_rng(seed).uniform(0.05, 1.0, (d, 2, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [3, 6, 15])
+def test_quadrant_descent_prng_plain_matches_pallas(ref, d):
+    """Bit for bit against the Pallas kernel in interpret mode, at a ragged
+    slot count: the reference runs whole 512-slot tiles, the port exactly
+    the slots asked for, and a slot's draw does not depend on the count."""
+    import jax.numpy as jnp
+
+    cum = ops._batch_cumprobs(_batch_thetas(d, d))
+    seed = (0x9E3779B9, (0xDEADBEEF + d) & 0xFFFFFFFF)
+    slots = 1000
+    padded = -(-slots // ref.qd.TILE) * ref.qd.TILE
+    seed_arr = np.array([seed], dtype=np.uint32).astype(np.int32)
+    want = ref.qd.quadrant_descent_prng(jnp.asarray(seed_arr), jnp.asarray(cum.numpy()),
+                                        num_slots=padded, interpret=True)
+    got = qd.quadrant_descent_prng_plain(seed, cum, num_slots=slots, chunk=384)
+    for w, g in zip(want, got):
+        assert g.dtype == torch.int32 and g.shape == (slots,)
+        assert torch.equal(torch.from_numpy(np.array(w)[:slots]), g)
+
+
+def test_batch_cumprobs_bits_match_reference():
+    """The eager (d, 4) table of the reference's sample_edge_batch_prng: its
+    sum and cumulative sum run sequentially (not the plan's pairwise sums)."""
+    import jax.numpy as jnp
+
+    th = _batch_thetas(31, 1)
+    flat = jnp.asarray(th).reshape(-1, 4)
+    want = np.asarray(jnp.cumsum(flat / jnp.sum(flat, axis=1, keepdims=True), axis=1))
+    got = ops._batch_cumprobs(torch.from_numpy(th)).numpy()
+    assert np.array_equal(want.view(np.uint32), got.view(np.uint32))
+
+
+@pytest.mark.parametrize("num_edges", [100, 8000])
+def test_sample_edge_batch_prng_matches_reference(ref, num_edges):
+    """The KPGM entry point, same key, same (src, dst); the 100-edge batch
+    is a prefix of the 8000-edge one (tests/test_counter_prng.py:194)."""
+    import jax
+    import jax.numpy as jnp
+
+    th = _batch_thetas(10, 5)
+    kd = np.asarray(jax.random.key_data(jax.random.PRNGKey(21)))
+    want = ref.ops.sample_edge_batch_prng(jnp.asarray(kd), jnp.asarray(th), num_edges)
+    key = torch.from_numpy(kd.astype(np.int64))
+    got = ops.sample_edge_batch_prng(key, torch.from_numpy(th), num_edges, device="cpu")
+    longer = ops.sample_edge_batch_prng(key, torch.from_numpy(th), 8000, device="cpu")
+    for w, g, ln in zip(want, got, longer):
+        assert g.shape == (num_edges,) and torch.equal(torch.from_numpy(np.array(w)), g)
+        assert torch.equal(ln[:num_edges], g)
+
+
+def test_quadrant_descent_prng_native_raises_and_cpu_counts_no_launch():
+    cum = ops._batch_cumprobs(_batch_thetas(4, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        ops.sample_edge_batch_prng(prng.PRNGKey(0), _batch_thetas(4, 2), 64, tpu_native=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="tpu_native"):
+        qd.quadrant_descent_prng(SEED, cum, num_slots=64, tpu_native=True)
+    before = ops.kernel_launches()["quadrant_descent_prng"]
+    got = qd.quadrant_descent_prng(SEED, cum, num_slots=777)
+    want = qd.quadrant_descent_prng_plain(SEED, cum, num_slots=777)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ops.kernel_launches()["quadrant_descent_prng"] == before
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qd.quadrant_descent_prng(SEED, cum.to("meta"), num_slots=8)
+    if torch.cuda.is_available():
+        assert ops.sample_edge_batch_prng(prng.PRNGKey(0), _batch_thetas(4, 2), 8)[0].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ops.sample_edge_batch_prng(prng.PRNGKey(0), _batch_thetas(4, 2), 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, slots", [(3, 1), (15, 100_003), (31, 1 << 20)])
+def test_cuda_quadrant_descent_prng_equals_plain(cuda_device, d, slots):
+    cum = ops._batch_cumprobs(_batch_thetas(d, d)).to(cuda_device)
+    before = qd.PRNG_LAUNCHES
+    got = qd.quadrant_descent_prng(SEED, cum, num_slots=slots)
+    torch.cuda.synchronize()
+    assert qd.PRNG_LAUNCHES == before + 1
+    want = qd.quadrant_descent_prng_plain(SEED, cum, num_slots=slots)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

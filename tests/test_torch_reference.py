@@ -36,7 +36,11 @@ _REF_MODULES = {
     "magm": "repro.core.magm",
     "partition": "repro.core.partition",
     "qd": "repro.kernels.quadrant_descent",
+    "ml": "repro.kernels.magm_logprob",
+    "bt": "repro.kernels.bernoulli_tile",
     "ops": "repro.kernels.ops",
+    "naive": "repro.core.naive",
+    "magfit": "repro.fit.magfit",
     "paper": "repro.configs.magm_paper",
 }
 
@@ -111,6 +115,7 @@ _IMPORT_CHECK = """
 import sys
 import repro_torch, repro_torch.api, repro_torch.interop
 import repro_torch.core.quilt, repro_torch.kernels.ops, repro_torch.configs.magm_paper
+import repro_torch.core.naive, repro_torch.fit.magfit
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 assert not bad, bad
