@@ -19,7 +19,21 @@ launch counts set to 0 just before and read just after:
 - MAGFIT's dense scoring (dense_expected_logprob, elbo_dense) through the
   magm_logprob kernel;
 - the counter-PRNG KPGM edge batch (2^25 edges) through
-  quadrant_descent_prng.
+  quadrant_descent_prng;
+- the uniforms-operand kernels quadrant_descent (2^24 rows at d = 16, and a
+  ragged count) and quilt_descent_lookup (one draw chunk with the n = 2^16
+  tables in L2, and with the n = 2^12 tables in shared memory) against
+  their plain versions;
+- the default MAGM session at n = 2^16, whose exact round would pass
+  DEVICE_MAX_CANDIDATES, so it takes the host path (threefry batches through
+  quilt_descent_lookup, arrival-order dedup on the host): every graph's
+  distinct-cell count against its drawn target, the edge count's z against
+  sum Q;
+- KPGMSampler(backend="host") at d = 20 (~40 M edges) through
+  quadrant_descent, its edge count against its drawn target;
+- MAGMSampler(exact_cells=False) at n = 2^15, the ranked device rounds;
+- the card against the CPU at n = 2^12, bit for bit, for backend="host",
+  exact_cells=False, explicit targets, and KPGMSampler ("auto" and "host").
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  Output, last three lines: the card's name and power limit as
@@ -43,7 +57,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.api import MAGMSampler, SamplerConfig  # noqa: E402
+from repro_torch.api import KPGMSampler, MAGMSampler, SamplerConfig  # noqa: E402
 from repro_torch.configs.magm_paper import DEFAULT_MU, THETA_1  # noqa: E402
 from repro_torch.core import f32math, kpgm, magm, naive, prng, quilt  # noqa: E402
 from repro_torch.fit import magfit  # noqa: E402
@@ -61,7 +75,15 @@ LOGQ_ATOL = 2e-4  # the reference's own log-Q tolerance (tests/test_kernels.py)
 BAND = 2e-4  # a Bernoulli compare may flip only where |log u - log q| <= BAND
 SEED = 0
 
-KERNELS = ("quilt_prng_descent_lookup", "quadrant_descent_prng", "magm_logprob", "bernoulli_tile")
+HOST_LOG2_N = 16  # the smallest paper configuration past the exact path's cap
+KPGM_D = 20  # KPGM_PLAN_MAX_NODES = 2^20: the largest identity plan
+UNIFORM_ROWS = 1 << 24  # quadrant_descent against its plain version
+UNIFORM_D = 16
+
+KERNELS = (
+    "quilt_prng_descent_lookup", "quadrant_descent_prng", "magm_logprob", "bernoulli_tile",
+    "quadrant_descent", "quilt_descent_lookup",
+)
 
 # H100 SXM peaks: HBM 3.35 TB/s (NVIDIA data sheet); 32-bit operations at
 # 128 lanes per SM x 132 SMs x 1.98 GHz = 33.5 T ops/s, half the 67 TFLOP/s
@@ -128,9 +150,10 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def profiled_kernel_ms(fn, reps: int, kernel: str):
-    """Mean device time per call of the CUDA kernels whose name holds
-    ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls; None
-    when the trace shows no device time for them."""
+    """Mean device time per traced launch of the CUDA kernels whose name
+    holds ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls (a
+    trace that holds fewer launches than calls is reported); None when the
+    trace shows no device time for them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -141,8 +164,11 @@ def profiled_kernel_ms(fn, reps: int, kernel: str):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
-    return us / 1e3 / reps if us > 0 else None
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    us, count = sum(e.device_time_total for e in hits), sum(e.count for e in hits)
+    if count != reps:
+        log(f"profiler: {count} launches of {kernel} traced in {reps} calls")
+    return us / 1e3 / count if us > 0 else None
 
 
 def kernel_bound_ms(plan: quilt.QuiltPlan, rows: int) -> tuple:
@@ -314,6 +340,7 @@ def phase_build() -> None:
         for line in _build.BUILD_LOG.get(name, "").splitlines():
             log(f"    ptxas: {line}")
     qd._library(), qd._prng_library(), ml._library(), bt._library()
+    qd._descent_library(), qd._lookup_library()
 
 
 def tile_bound_ms(M: int, N: int, d: int, cell_bytes: int) -> tuple:
@@ -479,6 +506,23 @@ def naive_stage_ms(F: np.ndarray, params, device) -> None:
         + " ".join(f"{k}={cuda_ms(f, reps=5)}" for k, f in stages.items()))
 
 
+def sum_q(F: np.ndarray, thetas, device) -> tuple:
+    """(sum Q, its sigma) given F: the expected edge count of a MAGM graph
+    and the standard deviation of the count, tile by tile through the
+    magm_logprob kernel."""
+    n = F.shape[0]
+    Fd = torch.from_numpy(F).to(device=device, dtype=torch.float32)
+    s1 = torch.zeros((), dtype=torch.float64, device=device)
+    s2 = torch.zeros((), dtype=torch.float64, device=device)
+    for i0 in range(0, n, NAIVE_TILE):
+        for j0 in range(0, n, NAIVE_TILE):
+            q = torch.exp(ops.magm_logprob(Fd[i0:i0 + NAIVE_TILE], Fd[j0:j0 + NAIVE_TILE], thetas).double())
+            s1 += q.sum()
+            s2 += (q * (1.0 - q)).sum()
+    torch.cuda.synchronize()
+    return float(s1), float(s2) ** 0.5
+
+
 def phase_naive_full_size(sampler, quilt_edges: int) -> dict:
     """The naive baseline on the full-size session's F: sum Q and sigma
     through the magm_logprob kernel tile by tile, then naive_sample; both
@@ -487,19 +531,10 @@ def phase_naive_full_size(sampler, quilt_edges: int) -> dict:
     F, params = sampler.F, sampler.config.params
     n = F.shape[0]
     tiles = (-(-n // NAIVE_TILE)) ** 2
-    Fd = torch.from_numpy(F).to(device=device, dtype=torch.float32)
 
     ops.reset_kernel_launches()
-    s1 = torch.zeros((), dtype=torch.float64, device=device)
-    s2 = torch.zeros((), dtype=torch.float64, device=device)
-    for i0 in range(0, n, NAIVE_TILE):
-        for j0 in range(0, n, NAIVE_TILE):
-            q = torch.exp(ops.magm_logprob(Fd[i0:i0 + NAIVE_TILE], Fd[j0:j0 + NAIVE_TILE], params.thetas).double())
-            s1 += q.sum()
-            s2 += (q * (1.0 - q)).sum()
-    torch.cuda.synchronize()
+    mean, sigma = sum_q(F, params.thetas, device)
     logprob_launches = ops.kernel_launches()["magm_logprob"]
-    mean, sigma = float(s1), float(s2) ** 0.5
 
     ops.reset_kernel_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -585,6 +620,356 @@ def phase_dense_scoring(device) -> None:
         f"elbo_dense n={n}: kernel={e_kernel} plain={e_plain}")
 
 
+# --- the uniforms-operand kernels and the paths that run them ---
+
+
+def uniform_bound_ms(rows: int, d: int, tables=None) -> tuple:
+    """Least time for quadrant_descent (tables None) or quilt_descent_lookup
+    on ``rows`` rows: its bytes (4 d of uniforms read and 8 of ids written
+    per row; with a lookup also 8 of block ids read, 8 of node ids written
+    and the tables read once) at the HBM rate, or its int32 operations at
+    the int32 peak, whichever is larger.  Operations counted from the
+    source: 8 per uniform to stage it through shared memory and 13 to
+    descend its level (load, three compares, the bit updates, the loop),
+    10 per row for the index and the stores; a search step 10, twice per
+    row, and 10 for the block ids.  The searches run a fixed number of
+    steps, so the count does not depend on the data."""
+    bytes_ = rows * (4 * d + 8) + d * 16
+    ops_ = rows * (21 * d + 10)
+    if tables is not None:
+        steps = max(tables.shape[1] - 1, 1).bit_length() + 1
+        bytes_ += rows * 16 + tables.numel() * 8
+        ops_ += rows * (2 * 10 * steps + 10)
+    t_ops, t_bytes = ops_ / INT32_OPS_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def test_uniforms(rows: int, cum: torch.Tensor, seed: int) -> torch.Tensor:
+    """(rows, d) float32 uniforms on cum's device, every 97th row set to a
+    level threshold (the compares are >=)."""
+    g = torch.Generator(device=cum.device).manual_seed(seed)
+    u = torch.rand((rows, cum.shape[0]), generator=g, device=cum.device)
+    u[::97] = cum[:, 1][None, :]
+    return u
+
+
+def equal_or_raise(got, want, what: str) -> int:
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: kernel != plain in {int((g != w).sum())} rows")
+    return max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want) if g.numel())
+
+
+def uniform_kernel_timing(fn, kernel: str, plain, bound: tuple) -> dict:
+    """A uniforms kernel's timings: ``ms`` by CUDA events over 20
+    back-to-back calls (``cuda_ms``, as the other kernels are timed), beside
+    the median events time of a call alone (10 calls, each queued behind a
+    spin), the profiler's device time per launch and the host time per
+    call."""
+    events = cuda_ms(fn, reps=20)
+    prof = profiled_kernel_ms(fn, 10, kernel)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        fn()
+    host = (time.perf_counter() - t) * 1e3 / 20
+    torch.cuda.synchronize()
+    alone = []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(1e-3 * SPIN_CYCLES_PER_S))  # the call is queued before start runs
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        alone.append(start.elapsed_time(end))
+    return {
+        "ms": events, "events_alone_ms": statistics.median(alone), "profiler_ms": prof,
+        "host_ms_per_call": host,
+        "plain_ms": cuda_ms(plain, reps=3),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        # no single PyTorch call computes the descent, with or without the lookup
+        "library_ms": None,
+    }
+
+
+def phase_uniform_kernels_vs_plain(device, plans) -> dict:
+    """quadrant_descent at its main-path shape (a draw chunk of the KPGM
+    host loop at d = 20, and a ragged count) and at 2^24 rows of d = 16
+    (and a ragged count), and quilt_descent_lookup on one draw chunk of the
+    main path with the tables of each plan (n = 2^16: L2; n = 2^12: shared
+    memory), each equal to its plain version; timed at the main-path shapes
+    (the d = 16 descent is timed too, for the record)."""
+    chunk = kpgm.DRAW_CHUNK_ELEMS // KPGM_D
+    cases = (
+        (KPGM_D, kpgm._level_cumprobs(kpgm.make_params(THETA_1, KPGM_D).thetas), (chunk, chunk - 333)),
+        (UNIFORM_D, kpgm._level_cumprobs(magm.make_params(THETA_1, DEFAULT_MU, UNIFORM_D).thetas),
+         (UNIFORM_ROWS, UNIFORM_ROWS - 333)),
+    )
+    errs, timings = [], {}
+    for d, cum, sizes in cases:
+        cum = cum.to(device)
+        for rows in sizes:
+            u = test_uniforms(rows, cum, SEED + rows % 1000)
+            errs.append(equal_or_raise(qd.quadrant_descent(u, cum), qd.quadrant_descent_plain(u, cum),
+                                       f"quadrant_descent rows={rows} d={d}"))
+            log(f"quadrant_descent == plain: rows={rows} d={d}")
+        u = test_uniforms(sizes[0], cum, SEED)
+        timings[d] = uniform_kernel_timing(
+            lambda: qd.quadrant_descent(u, cum), "quadrant_descent_kernel",
+            lambda: qd.quadrant_descent_plain(u, cum), uniform_bound_ms(sizes[0], d),
+        )
+        log(f"timing quadrant_descent rows={sizes[0]} d={d}: {json.dumps(timings[d])}")
+        del u
+    descent = {"max_abs_err": max(errs), **timings[KPGM_D]}
+
+    errs, lookup = [], None
+    for plan in plans:
+        rows = kpgm.DRAW_CHUNK_ELEMS // plan.d
+        u = test_uniforms(rows, plan.cum, SEED + plan.d)
+        g = torch.Generator(device=device).manual_seed(SEED + 71)
+        kb = torch.randint(0, plan.B, (rows,), generator=g, device=device, dtype=torch.int32)
+        lb = torch.randint(0, plan.B, (rows,), generator=g, device=device, dtype=torch.int32)
+        args = (u, plan.cum, kb, lb, plan.table_cfg, plan.table_node)
+        got = qd.quilt_descent_lookup(*args)
+        errs.append(equal_or_raise(got, qd.quilt_descent_lookup_plain(*args), f"quilt_descent_lookup n={plan.n}"))
+        smem = qd.descent_tables_in_shared_memory(plan.d, plan.table_cfg)
+        hits = float((got[2] >= 0).float().mean())
+        log(f"quilt_descent_lookup == plain: n={plan.n} rows={rows} d={plan.d} tables={tuple(plan.table_cfg.shape)} "
+            f"tables_in_smem={smem} src_hit_rate={hits}")
+        if plan.n == 1 << HOST_LOG2_N:
+            lookup = uniform_kernel_timing(
+                lambda: qd.quilt_descent_lookup(*args), "quilt_descent_lookup_kernel",
+                lambda: qd.quilt_descent_lookup_plain(*args), uniform_bound_ms(rows, plan.d, plan.table_cfg),
+            )
+            log(f"timing quilt_descent_lookup n={plan.n} rows={rows}: {json.dumps(lookup)}")
+    lookup["max_abs_err"] = max(errs)
+    return {"quadrant_descent": descent, "quilt_descent_lookup": lookup}
+
+
+def profiled_call(fn) -> tuple:
+    """(result, wall ms, device-busy ms, top device ops) of one call under
+    torch.profiler: busy is the sum of the device time of every op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    ev = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    return out, wall, busy, [(e.key, round(e.self_device_time_total / 1e3, 3)) for e in top]
+
+
+def timed_runs(fn, keys) -> list:
+    """Host-clock ms of fn(key) for each key; each call ends on the host."""
+    out = []
+    for k in keys:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(k)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def check_edges(e: np.ndarray, n: int, what: str) -> None:
+    if e.ndim != 2 or e.shape[1] != 2 or e.shape[0] == 0:
+        raise AssertionError(f"{what}: bad edge array {e.shape}")
+    if e.min() < 0 or e.max() >= n:
+        raise AssertionError(f"{what}: edge ids outside [0, {n})")
+    if np.unique(e[:, 0] * n + e[:, 1]).size != e.shape[0]:
+        raise AssertionError(f"{what}: duplicate edges")
+
+
+def counters_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in quilt.DISPATCH_COUNTERS.items()}
+
+
+def phase_host_session(device) -> dict:
+    """The default MAGMSampler at n = 2^16: the exact round is refused, the
+    ranked round is over the cap too, and the host path runs with
+    quilt_descent_lookup.  Gates: unique in-range edges, every graph's
+    distinct-cell count equal to its drawn target unless max_rounds ran out
+    (printed), the card's run equal to the engine's for the same key."""
+    t0 = time.perf_counter()
+    sampler = MAGMSampler(paper_config(HOST_LOG2_N, device))
+    plan = sampler.plan
+    budget = quilt._exact_budget(plan.p_max, plan.mean_edges)
+    log(f"plan n=2^{HOST_LOG2_N}: B={plan.B} L={plan.table_cfg.shape[1]} exact budget {plan.num_graphs} x "
+        f"{budget} = {plan.num_graphs * budget} > DEVICE_MAX_CANDIDATES={kpgm.DEVICE_MAX_CANDIDATES} "
+        f"build_s={time.perf_counter() - t0:.3f}")
+    n = plan.n
+    key = prng.PRNGKey(SEED + 90)
+    before = dict(quilt.DISPATCH_COUNTERS)
+    ops.reset_kernel_launches()
+    kpgm.HOST_DEDUP_SECONDS = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    gs = sampler.sample(key)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t) * 1e3
+    launches = ops.kernel_launches()
+    delta = counters_delta(before)
+    peak = torch.cuda.max_memory_allocated()
+    dedup_s = kpgm.HOST_DEDUP_SECONDS
+    if delta["exact_fallbacks"] != 1 or delta["device_rounds"] != 0:
+        raise AssertionError(f"n=2^{HOST_LOG2_N} did not take the host path: {delta}")
+    if launches["quilt_descent_lookup"] < 1:
+        raise AssertionError("the host path did not launch quilt_descent_lookup")
+    check_edges(gs.edges, n, f"host session n=2^{HOST_LOG2_N}")
+    if gs.edges.shape[0] != gs.stats.kept_edges:
+        raise AssertionError(f"edges {gs.edges.shape} vs stats {gs.stats}")
+    log(f"sample n=2^{HOST_LOG2_N}: edges={gs.num_edges} stats={tuple(gs.stats)} launches={launches} "
+        f"counters={delta} peak_mem_bytes={peak} host_dedup_s={dedup_s} cold_ms={cold_ms}")
+
+    run = quilt.quilt_run(key, plan)  # the engine under the session, for the per-graph gate
+    if not np.array_equal(run.edges(), gs.edges):
+        raise AssertionError("the engine's run differs from the session's for the same key")
+    short = run.targets - run.counts
+    rounds_ran_out = bool((short > 0).any())
+    if (short < 0).any():
+        raise AssertionError("a graph holds more cells than its target")
+    mean, sigma = sum_q(sampler.F, sampler.config.params.thetas, device)
+    z = (gs.num_edges - mean) / sigma
+    log(f"host session gates: graphs={run.targets.size} targets_met={int((short == 0).sum())} "
+        f"max_rounds_ran_out={rounds_ran_out} shortfall={int(short.sum())} targets_sum={int(run.targets.sum())} "
+        f"sum_Q={mean} sigma={sigma} z={z} (first-N-distinct law: printed, not gated)")
+    if rounds_ran_out:
+        log("host session: max_rounds ran out before every target was met (allowed, printed)")
+
+    _, wall, busy, top = profiled_call(lambda: sampler.sample(prng.PRNGKey(SEED + 91)))
+    dedup0 = kpgm.HOST_DEDUP_SECONDS
+    walls = timed_runs(sampler.sample, [prng.PRNGKey(SEED + 92 + i) for i in range(2)])
+    dedup_per_run = (kpgm.HOST_DEDUP_SECONDS - dedup0) / 2
+    log(f"timing host session n=2^{HOST_LOG2_N}: ms_warm={walls} ms_median={statistics.median(walls)} "
+        f"host_dedup_s_per_run={dedup_per_run} profiled_run wall_ms={wall} device_busy_ms={busy} "
+        f"device_idle_share={1 - busy / wall} top_device_ops={top}")
+    stage_host_path(plan, device)
+    return {"quilt_descent_lookup": launches["quilt_descent_lookup"]}
+
+
+def stage_host_path(plan, device) -> None:
+    """Device ms of one draw chunk's stages on the host path (threefry,
+    the lookup kernel, the copy of the four id arrays to the host), timed
+    one by one at the main path's chunk."""
+    rows = kpgm.DRAW_CHUNK_ELEMS // plan.d
+    key = prng.PRNGKey(SEED + 95)
+    u = prng.uniform(key, (rows, plan.d), offset=rows * plan.d, device=device)
+    kb = torch.zeros(rows, dtype=torch.int32, device=device)
+    out = qd.quilt_descent_lookup(u, plan.cum, kb, kb, plan.table_cfg, plan.table_node)
+    stages = {
+        "threefry_uniforms": lambda: prng.uniform(key, (rows, plan.d), offset=rows * plan.d, device=device),
+        "quilt_descent_lookup": lambda: qd.quilt_descent_lookup(u, plan.cum, kb, kb, plan.table_cfg, plan.table_node),
+        "ids_to_host": lambda: [o.cpu() for o in out],
+    }
+    log(f"host path stage_ms per draw chunk of {rows} rows: "
+        + " ".join(f"{k}={cuda_ms(f, reps=3)}" for k, f in stages.items()))
+
+
+def phase_kpgm_host(device) -> dict:
+    """KPGMSampler(backend="host") at d = 20 through quadrant_descent: the
+    edges unique and in range, their count equal to the drawn target
+    (unless max_rounds ran out, printed)."""
+    params = kpgm.make_params(THETA_1, KPGM_D)
+    sampler = KPGMSampler(SamplerConfig(params=params, backend="host", device=device))
+    n = params.num_nodes
+    key = prng.PRNGKey(SEED + 100)
+    target = int(kpgm.sample_num_edges(prng.split(key)[1], params.thetas))  # the host loop's first split
+    ops.reset_kernel_launches()
+    kpgm.HOST_DEDUP_SECONDS = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    gs = sampler.sample(key)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t) * 1e3
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if launches["quadrant_descent"] < 1:
+        raise AssertionError("the KPGM host loop did not launch quadrant_descent")
+    check_edges(gs.edges, n, f"KPGM d={KPGM_D}")
+    if gs.num_edges > target:
+        raise AssertionError(f"{gs.num_edges} edges over the target {target}")
+    m, v = kpgm.edge_moments_eager(params.thetas)
+    z = (gs.num_edges - float(m)) / float(kpgm._edge_std(m, v))
+    log(f"KPGM d={KPGM_D}: edges={gs.num_edges} target={target} target_met={gs.num_edges == target} "
+        f"z_vs_m={z} launches={launches} peak_mem_bytes={peak} host_dedup_s={kpgm.HOST_DEDUP_SECONDS} "
+        f"cold_ms={cold_ms}")
+    _, wall, busy, top = profiled_call(lambda: sampler.sample(prng.PRNGKey(SEED + 101)))
+    dedup0 = kpgm.HOST_DEDUP_SECONDS
+    walls = timed_runs(sampler.sample, [prng.PRNGKey(SEED + 102 + i) for i in range(2)])
+    log(f"timing KPGM host d={KPGM_D}: ms_warm={walls} ms_median={statistics.median(walls)} "
+        f"host_dedup_s_per_run={(kpgm.HOST_DEDUP_SECONDS - dedup0) / 2} profiled_run wall_ms={wall} "
+        f"device_busy_ms={busy} device_idle_share={1 - busy / wall} top_device_ops={top}")
+    return {"quadrant_descent": launches["quadrant_descent"]}
+
+
+def phase_ranked(device) -> None:
+    """MAGMSampler(exact_cells=False) at n = 2^15: the ranked device rounds
+    with quilt_prng_descent_lookup."""
+    sampler = MAGMSampler(paper_config(FULL_LOG2_N, device).replace(exact_cells=False))
+    before = dict(quilt.DISPATCH_COUNTERS)
+    ops.reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    gs = sampler.sample(prng.PRNGKey(SEED + 110))
+    torch.cuda.synchronize()
+    launches, delta = ops.kernel_launches(), counters_delta(before)
+    if launches["quilt_prng_descent_lookup"] < 1 or delta["device_rounds"] != 1:
+        raise AssertionError(f"ranked rounds: launches={launches} counters={delta}")
+    check_edges(gs.edges, sampler.n, "ranked rounds")
+    walls = timed_runs(sampler.sample, [prng.PRNGKey(SEED + 111 + i) for i in range(3)])
+    log(f"ranked rounds n=2^{FULL_LOG2_N}: edges={gs.num_edges} stats={tuple(gs.stats)} counters={delta} "
+        f"launches={launches} peak_mem_bytes={torch.cuda.max_memory_allocated()} ms={walls} "
+        f"ms_median={statistics.median(walls)}")
+
+
+def same_sample(what: str, got, want) -> None:
+    if not np.array_equal(got.edges, want.edges):
+        raise AssertionError(f"{what}: the card's edges differ from the CPU's")
+    if (got.stats is None) != (want.stats is None) or (got.stats is not None and tuple(got.stats) != tuple(want.stats)):
+        raise AssertionError(f"{what}: stats differ: {got.stats} vs {want.stats}")
+
+
+def phase_legacy_cross_device(device) -> None:
+    """Each new path at n = 2^12 (d = 12) on the card and on the CPU, same
+    inputs and key: equal edges and stats."""
+    key = prng.PRNGKey(SEED + 120)
+    for name, change, kernel in (
+        ("backend=host", {"backend": "host"}, "quilt_descent_lookup"),
+        ("exact_cells=False", {"exact_cells": False}, "quilt_prng_descent_lookup"),
+    ):
+        cuda_s = MAGMSampler(paper_config(CHECK_LOG2_N, device).replace(**change))
+        cpu_s = MAGMSampler(paper_config(CHECK_LOG2_N, "cpu").replace(**change))
+        ops.reset_kernel_launches()
+        got = cuda_s.sample(key)
+        launches = ops.kernel_launches()[kernel]
+        same_sample(name, got, cpu_s.sample(key))
+        log(f"cross-device {name} n=2^{CHECK_LOG2_N}: edges={got.num_edges} {kernel} launches={launches}")
+        if launches < 1:
+            raise AssertionError(f"{name} did not launch {kernel}")
+    targets = np.random.default_rng(SEED).integers(0, 2 * int(cuda_s.plan.mean_edges), cuda_s.plan.num_graphs)
+    got = quilt.quilt_run(key, cuda_s.plan, targets=targets)
+    want = quilt.quilt_run(key, cpu_s.plan, targets=targets)
+    if not np.array_equal(got.edges(), want.edges()) or not np.array_equal(got.counts, want.counts):
+        raise AssertionError("explicit targets: the card's run differs from the CPU's")
+    log(f"cross-device explicit targets n=2^{CHECK_LOG2_N}: edges={got.kept_edges()} counts_sum={int(got.counts.sum())}")
+    params = kpgm.make_params(THETA_1, CHECK_LOG2_N)
+    for backend in ("auto", "host"):
+        for num_edges in (None, 5000):
+            cfg = SamplerConfig(params=params, backend=backend)
+            got = KPGMSampler(cfg.replace(device=device)).sample(key, num_edges=num_edges)
+            same_sample(f"KPGM {backend}", got, KPGMSampler(cfg.replace(device="cpu")).sample(key, num_edges=num_edges))
+            log(f"cross-device KPGMSampler backend={backend} num_edges={num_edges} d={CHECK_LOG2_N}: "
+                f"edges={got.num_edges} stats={got.stats}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -603,6 +988,13 @@ def main() -> int:
     naive_launches = phase_naive_full_size(sampler, quilt_edges)
     phase_naive_cross_device(device)
     phase_dense_scoring(device)
+    plans = [MAGMSampler(paper_config(lg, device)).plan for lg in (HOST_LOG2_N, CHECK_LOG2_N)]
+    uniform = phase_uniform_kernels_vs_plain(device, plans)
+    del plans
+    phase_legacy_cross_device(device)
+    phase_ranked(device)
+    host_launches = phase_host_session(device)
+    kpgm_launches = phase_kpgm_host(device)
 
     kernels = [
         {
@@ -641,9 +1033,27 @@ def main() -> int:
             "launches": naive_launches["bernoulli_tile"],
             **tiles["bernoulli_tile"],
         },
+        {
+            "name": "quadrant_descent",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/quadrant_descent.cu",
+            "replaces": "src/repro/kernels/quadrant_descent.py:188",
+            "launches": kpgm_launches["quadrant_descent"],
+            **uniform["quadrant_descent"],
+        },
+        {
+            "name": "quilt_descent_lookup",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/quilt_descent_lookup.cu",
+            "replaces": "src/repro/kernels/quadrant_descent.py:131",
+            "launches": host_launches["quilt_descent_lookup"],
+            **uniform["quilt_descent_lookup"],
+        },
     ]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     log(nvidia_smi())
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

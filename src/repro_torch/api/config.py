@@ -18,17 +18,19 @@ VALID_BACKENDS = ("auto", "device", "host", "balldrop")
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SamplerConfig:
-    """Immutable sampler description consumed by :class:`MAGMSampler`.
+    """Immutable sampler description consumed by :class:`MAGMSampler` and
+    :class:`KPGMSampler`.
 
-    ``params`` is ``magm.MAGMParams``; the attribute source is an explicit
-    (n, d) ``F`` or ``num_nodes`` rows drawn with ``attribute_key`` (default
-    ``PRNGKey(0)``).  ``use_kernel`` None runs the block lookup through its
-    kernel wrapper, False asks for the plain PyTorch version.  ``device``
-    is where the session runs (default ``"cuda"``; a session raises when no
-    card is present).  The other fields mean what they mean in the
-    reference; the paths this port does not run yet (``backend`` "host" or
-    "balldrop", ``mesh``, ``split``, ``exact_cells=False``) make the
-    session raise ``NotImplementedError``.
+    ``params`` is ``magm.MAGMParams`` (MAGM) or ``kpgm.KPGMParams`` (KPGM);
+    the attribute source of a MAGM session is an explicit (n, d) ``F`` or
+    ``num_nodes`` rows drawn with ``attribute_key`` (default
+    ``PRNGKey(0)``).  ``use_kernel`` None runs the device rounds' block
+    lookup through its kernel wrapper, False asks for the plain PyTorch
+    version.  ``device`` is where the session runs (default ``"cuda"``; a
+    session raises when no card is present).  The other fields mean what
+    they mean in the reference; the paths this port does not run yet
+    (``backend="balldrop"``, ``mesh``, ``split``) make the session raise
+    ``NotImplementedError``.
     """
 
     params: Any

@@ -1,8 +1,11 @@
-"""MAGMSampler: build the device state once, sample many times.
+"""MAGMSampler and KPGMSampler: build the device state once, sample many
+times.
 
 A session resolves a frozen :class:`SamplerConfig` into an owned
-:class:`repro_torch.core.quilt.QuiltPlan` on its device and a key stream;
-each ``.sample()`` runs one exact-cell round.
+:class:`repro_torch.core.quilt.QuiltPlan` on its device and a key stream.
+A MAGM sample runs the quilting engine (``quilt.quilt_run``); a KPGM
+sample runs it over the B = 1 identity plan, or Algorithm 1's host loop
+where no plan is built (``backend="host"``, d > 20).
 """
 
 from __future__ import annotations
@@ -13,12 +16,55 @@ import numpy as np
 import torch
 
 from repro_torch.api.config import SamplerConfig
-from repro_torch.api.result import GraphSample
-from repro_torch.core import magm, prng, quilt
+from repro_torch.api.result import GraphSample, KPGMStats
+from repro_torch.core import kpgm, magm, prng, quilt
 from repro_torch.core.device import resolve_device
 
+# identity plans hold the 2^d config space; past this the host loop is the
+# KPGM backend
+KPGM_PLAN_MAX_NODES = 1 << 20
 
-class MAGMSampler:
+_STREAM = "sample_stream / sample_batch (ROADMAP queue 1: stream and batch) are not ported yet"
+
+
+class _Session:
+    """Shared session plumbing: config checks, device, key stream."""
+
+    def __init__(self, config: SamplerConfig, key: Optional[torch.Tensor]):
+        reason = quilt.unported_reason(backend=config.backend, mesh=config.mesh, split=config.split)
+        if reason is not None:
+            raise NotImplementedError(f"{reason} is not ported yet")
+        self.config = config
+        self.device = resolve_device(config.device)
+        self._key = key if key is not None else prng.PRNGKey(0)
+
+    def _next_key(self) -> torch.Tensor:
+        """Advance the session's key stream (used when sample(key=None))."""
+        self._key, sub = prng.split(self._key)
+        return sub
+
+    def _check_dtype(self, n: int) -> None:
+        if n > 0 and np.iinfo(np.dtype(self.config.dtype)).max < n - 1:
+            raise ValueError(f"dtype {np.dtype(self.config.dtype)} cannot hold node ids up to {n - 1}")
+
+    def _cast(self, edges: np.ndarray) -> np.ndarray:
+        return edges.astype(self.config.dtype, copy=False)
+
+    def _run(self, key: torch.Tensor, *, targets=None, exact_cells=None) -> quilt.QuiltRun:
+        c = self.config
+        return quilt.quilt_run(
+            key, self.plan, targets=targets, max_rounds=c.max_rounds, oversample=c.oversample,
+            backend=c.backend, use_kernel=c.use_kernel, exact_cells=exact_cells,
+        )
+
+    def sample_stream(self, *args, **kwargs):
+        raise NotImplementedError(_STREAM)
+
+    def sample_batch(self, *args, **kwargs):
+        raise NotImplementedError(_STREAM)
+
+
+class MAGMSampler(_Session):
     """Session over one MAGM configuration.
 
     Examples
@@ -35,18 +81,10 @@ class MAGMSampler:
     """
 
     def __init__(self, config: SamplerConfig, *, key: Optional[torch.Tensor] = None):
-        reason = quilt.unported_reason(
-            backend=config.backend, mesh=config.mesh,
-            exact_cells=config.exact_cells, split=config.split,
-        )
-        if reason is not None:
-            raise NotImplementedError(f"{reason} is not ported yet")
+        super().__init__(config, key)
         params = config.params
         if not hasattr(params, "mu"):
-            raise TypeError("MAGMSampler needs magm.MAGMParams (with mu)")
-        self.config = config
-        self.device = resolve_device(config.device)
-        self._key = key if key is not None else prng.PRNGKey(0)
+            raise TypeError("MAGMSampler needs magm.MAGMParams (with mu); for plain KPGM graphs use KPGMSampler")
         self.F = magm.resolve_attributes(
             params,
             config.F,
@@ -55,18 +93,10 @@ class MAGMSampler:
             device=self.device,
         )
         self.n = int(self.F.shape[0])
-        if self.n > 0 and np.iinfo(np.dtype(config.dtype)).max < self.n - 1:
-            raise ValueError(
-                f"dtype {np.dtype(config.dtype)} cannot hold node ids up to {self.n - 1}"
-            )
+        self._check_dtype(self.n)
         self.plan: Optional[quilt.QuiltPlan] = None
         if self.F.size:
             self.plan = quilt.build_quilt_plan(self.F, params.thetas, device=self.device)
-
-    def _next_key(self) -> torch.Tensor:
-        """Advance the session's key stream (used when sample(key=None))."""
-        self._key, sub = prng.split(self._key)
-        return sub
 
     def sample(self, key: Optional[torch.Tensor] = None) -> GraphSample:
         """Draw one MAGM graph; ``key=None`` consumes the session's stream."""
@@ -76,13 +106,82 @@ class MAGMSampler:
                 np.zeros((0, 2), dtype=self.config.dtype), 0,
                 quilt.QuiltStats(0, 0, 0, 0, 0, 0, None), key,
             )
-        c = self.config
-        run = quilt.quilt_run(
-            key, self.plan, backend=c.backend, use_kernel=c.use_kernel,
-            exact_cells=c.exact_cells,
-        )
+        run = self._run(key, exact_cells=self.config.exact_cells)
         edges = run.edges()
-        return GraphSample(
-            edges.astype(c.dtype, copy=False), self.n,
-            run.stats(edges.shape[0]), key,
+        return GraphSample(self._cast(edges), self.n, run.stats(edges.shape[0]), key)
+
+
+class KPGMSampler(_Session):
+    """Session for plain KPGM graphs (Algorithm 1).
+
+    Runs the draw as the trivial B = 1 quilt over an identity config ->
+    node plan (:func:`repro_torch.core.quilt.build_kpgm_plan`), through the
+    ranked rounds, so every sample keeps its drawn edge-count target; for
+    d > 20 or ``backend="host"`` the host loop of Algorithm 1 runs instead.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> from repro_torch.api import KPGMSampler, SamplerConfig
+    >>> from repro_torch.core import kpgm, prng
+    >>> theta = np.array([[0.3, 0.6], [0.6, 0.9]], dtype=np.float32)
+    >>> s = KPGMSampler(SamplerConfig(params=kpgm.make_params(theta, 6), device="cpu"))
+    >>> gs = s.sample(prng.PRNGKey(0), num_edges=50)
+    >>> gs.num_edges, gs.n, gs.stats.target_edges
+    (50, 64, 50)
+    """
+
+    def __init__(self, config: SamplerConfig, *, key: Optional[torch.Tensor] = None):
+        super().__init__(config, key)
+        params = config.params
+        if hasattr(params, "mu"):
+            raise TypeError("KPGMSampler needs kpgm.KPGMParams; for attribute graphs use MAGMSampler")
+        self.params = params
+        self.n = int(params.num_nodes)
+        self._check_dtype(self.n)
+        self.plan: Optional[quilt.QuiltPlan] = None
+        if config.backend != "host" and self.n <= KPGM_PLAN_MAX_NODES:
+            self.plan = quilt.build_kpgm_plan(params.thetas, device=self.device)
+        elif config.backend == "device":
+            # an explicit device request must not quietly become the host loop
+            raise ValueError(
+                f"backend='device' needs n <= {KPGM_PLAN_MAX_NODES} (got n={self.n}); "
+                "use backend='auto' or 'host'"
+            )
+
+    def _host_sample(self, key, num_edges) -> GraphSample:
+        edges = kpgm._kpgm_sample_host(
+            key, self.params, max_rounds=self.config.max_rounds,
+            oversample=self.config.oversample, num_edges=num_edges, device=self.device,
         )
+        return GraphSample(self._cast(edges), self.n, None, key)
+
+    def _engine_run(self, key: torch.Tensor, num_edges: Optional[int]) -> Optional[quilt.QuiltRun]:
+        """A run of the engine, or None where the host loop must run: no
+        plan, or an explicit ``num_edges`` past the device budget (the host
+        loop honors the target, the engine's host path draws its own)."""
+        if self.plan is None:
+            return None
+        targets = None if num_edges is None else np.array([num_edges])
+        # KPGM samples keep their drawn target: the ranked rounds, unless
+        # the config asks for exact cells
+        exact = False if self.config.exact_cells is None else self.config.exact_cells
+        try:
+            return self._run(key, targets=targets, exact_cells=exact)
+        except quilt.DeviceBatchUnavailable:
+            return None
+
+    def sample(self, key: Optional[torch.Tensor] = None, *, num_edges: Optional[int] = None) -> GraphSample:
+        """Draw one KPGM graph (``num_edges`` overrides the X ~ N(m, m - v)
+        draw); ``key=None`` consumes the session's stream."""
+        key = self._next_key() if key is None else key
+        run = self._engine_run(key, num_edges)
+        if run is None:
+            return self._host_sample(key, num_edges)
+        edges = run.edges()
+        # no stats when the engine took its host path: its target draw was
+        # never used there
+        stats = None if run.host_edges is not None else KPGMStats(
+            num_nodes=self.n, target_edges=int(run.targets[0]), sampled_edges=int(edges.shape[0])
+        )
+        return GraphSample(self._cast(edges), self.n, stats, key)

@@ -16,13 +16,86 @@ does not fit 63 bits the same order comes from two stable sorts, of
 
 Arrival order matters: per graph, the FIRST ``target`` distinct pairs of the
 stream are kept (Algorithm 1), never the smallest ids.
+
+Also the host helpers of the ranked rounds: the geometric batch-size grid
+(:func:`bucket_size`), how one batch is split across the graphs that need
+edges (:func:`plan_asks`, :func:`uniform_ask`), and the first-occurrence
+dedup of an edge array (:func:`dedup_edges`).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+
+def bucket_size(x: int, tile: int = 1) -> int:
+    """``x`` rounded up to the grid {8..15} * 2^k (ratio <= 1.125), then to
+    a multiple of ``tile``: the candidate-batch sizes of the ranked rounds."""
+    x = max(int(x), 1)
+    if x <= 16:
+        b = 16
+    else:
+        k = x.bit_length() - 4  # so that 8 * 2^k <= x < 16 * 2^k
+        base = 1 << k
+        b = 16 * base
+        for mult in range(8, 16):
+            if mult * base >= x:
+                b = mult * base
+                break
+    return b + (-b) % max(int(tile), 1)
+
+
+def plan_asks(needs: np.ndarray, oversample: float, tile: int = 1) -> Tuple[np.ndarray, int]:
+    """Split one bucketed candidate batch across the graphs that need edges.
+
+    Every graph with ``needs[g] > 0`` gets ~``needs[g] * oversample + 16``
+    slots and the rest of the bucket is spread over those graphs.  Returns
+    ``(asks, N)`` with ``asks.sum() == N``, N a bucket multiple of ``tile``.
+    """
+    needs = np.maximum(np.asarray(needs, dtype=np.int64), 0)
+    raw = np.where(needs > 0, (needs * oversample).astype(np.int64) + 16, 0)
+    total = int(raw.sum())
+    if total == 0:
+        return np.zeros_like(needs), 0
+    n = bucket_size(total, tile)
+    asks = raw * n // total
+    idx = np.nonzero(needs > 0)[0]
+    deficit = int(n - asks.sum())
+    q, r = divmod(deficit, idx.size)
+    asks[idx] += q
+    asks[idx[:r]] += 1
+    return asks, n
+
+
+def uniform_ask(needs: np.ndarray, oversample: float, tile: int = 1) -> int:
+    """One per-graph slot count covering the largest shortfall,
+    ``bucket_size(max(needs) * oversample + 16)`` (0 when nothing is
+    needed): every graph of a ranked round gets the same number of slots."""
+    needs = np.maximum(np.asarray(needs, dtype=np.int64), 0)
+    top = int(needs.max(initial=0))
+    if top == 0:
+        return 0
+    return bucket_size(int(top * oversample) + 16, tile)
+
+
+def dedup_edges(edges: np.ndarray) -> np.ndarray:
+    """First-occurrence unique rows of an ``(E, 2)`` edge array, in stream
+    order (node ids below 2^31).
+
+    >>> dedup_edges(np.array([[3, 1], [0, 2], [3, 1], [0, 0]]))
+    array([[3, 1],
+           [0, 2],
+           [0, 0]])
+    """
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    if edges.shape[0] == 0:
+        return edges
+    key = (edges[:, 0] << 32) | edges[:, 1]
+    _, first_idx = np.unique(key, return_index=True)
+    return edges[np.sort(first_idx)]
 
 
 def _packed_bits(node_bits: int, num_graphs: int, n: int) -> Tuple[int, int, bool]:

@@ -1,4 +1,5 @@
-"""float32 exp, log, log1p and expm1 as the reference evaluates them.
+"""float32 exp, log, log1p, expm1, sqrt and erf_inv as the reference
+evaluates them.
 
 The exact-cell acceptance alpha = exp(log p - log q) is ill-conditioned in
 float32: its argument is the difference of two logs of magnitude up to ~30,
@@ -46,6 +47,16 @@ _LOG1P_DEN = [_c(h) for h in ("402E2035A0000000", "4054C30B60000000", "406BB865A
 _LOG1P_NUM = [_c(h) for h in ("3F07BC0960000000", "3FDFE818A0000000", "401A509F40000000",
                               "403DE97380000000", "404E798EC0000000", "404C8E75A0000000",
                               "40340A2020000000")]
+
+# erf_inv: Giles' single-precision polynomials in w = -log1p(-x^2), one
+# for w < 5 (in w - 2.5) and one for w >= 5 (in sqrt(w) - 3), leading
+# coefficient first
+_ERFINV_LT5 = [_c(h) for h in ("3E5E2CB100000000", "3E970966C0000000", "BECD8E6AE0000000",
+                               "BED26B5820000000", "3F2CA65B60000000", "BF548A8100000000",
+                               "BF711C9DE0000000", "3FCF91EC60000000", "3FF805C5E0000000")]
+_ERFINV_GE5 = [_c(h) for h in ("BF2A3E1360000000", "3F1A76AD60000000", "3F561B8E40000000",
+                               "BF6E17BCE0000000", "3F77824F60000000", "BF7F38BAE0000000",
+                               "3F8354AFC0000000", "3FF006DB60000000", "4006A9EFC0000000")]
 
 _TANH_TINY = _c("3F3A36E2E0000000")
 _TANH_CLAMP = _c("401FFEC880000000")
@@ -171,3 +182,25 @@ def expm1(x: torch.Tensor) -> torch.Tensor:
     h = x * 0.5
     out = torch.where(torch.abs(x) > 0.5, e - 1.0, _tanh(h) * (e + 1.0))
     return torch.where(h == 0, raw, out)  # tiny inputs pass through as given
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root.  PyTorch's vectorised float32
+    sqrt on the CPU can be one ulp off; the float64 root rounded to float32
+    is the IEEE result (53 >= 2 * 24 + 2 bits, so the double rounding is
+    harmless) on every device."""
+    return torch.sqrt(torch.as_tensor(x).double()).float()
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """Inverse error function on (-1, 1), +-inf at +-1: w = -log1p(-x^2),
+    a degree-8 polynomial in w - 2.5 (w < 5) or sqrt(w) - 3 (w >= 5) by
+    Horner's rule with fused multiply-adds, times x."""
+    x = _f32(x)
+    w = -log1p(x * -x)
+    lt = w < 5.0
+    t = torch.where(lt, w - 2.5, sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = fma(p, t, torch.where(lt, a, b))
+    return torch.where(torch.abs(x) == 1.0, x * float("inf"), p * x)

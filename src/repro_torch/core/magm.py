@@ -83,6 +83,12 @@ def configs_from_attributes(F: torch.Tensor) -> torch.Tensor:
     return (F.to(torch.int64) * pows.to(F.device)).sum(dim=1).to(torch.int32)
 
 
+def attributes_from_configs(lam: torch.Tensor, d: int) -> torch.Tensor:
+    """Inverse of :func:`configs_from_attributes`: (n, d) int8 bits."""
+    shift = torch.arange(d - 1, -1, -1, device=torch.as_tensor(lam).device)
+    return ((torch.as_tensor(lam).to(torch.int64)[:, None] >> shift) & 1).to(torch.int8)
+
+
 class BilinearLogTheta(NamedTuple):
     """log Q decomposition:  logQ = c0 + F u 1^T + 1 (F v)^T + F diag(w) F^T."""
 

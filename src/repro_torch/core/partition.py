@@ -81,3 +81,13 @@ def padded_lookup_tables(part: Partition, min_width: int = 8) -> PaddedTables:
         node[b, :m] = part.sorted_nodes[b]
         lengths[b] = m
     return PaddedTables(configs=cfg, nodes=node, lengths=lengths)
+
+
+def lookup_nodes(sorted_configs: np.ndarray, sorted_nodes: np.ndarray, configs: np.ndarray) -> np.ndarray:
+    """Node ids of sampled configurations in one D_c, -1 where absent
+    (host numpy; the kernels' lookup is checked against it)."""
+    configs = np.asarray(configs)
+    if sorted_configs.size == 0:
+        return np.full(configs.shape, -1, dtype=np.int64)
+    pos = np.minimum(np.searchsorted(sorted_configs, configs), sorted_configs.size - 1)
+    return np.where(sorted_configs[pos] == configs, sorted_nodes[pos], -1)

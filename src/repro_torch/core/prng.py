@@ -3,8 +3,13 @@
 
 A key is a ``(2,)`` int64 tensor holding two uint32 words, the same words
 ``jax.random.key_data`` shows for the reference's key.  Only the subset the
-sampler's main path uses is here: ``PRNGKey``, ``split``, ``fold_in``,
-``key_data``, ``bits`` (uint32 / uint64) and ``uniform`` (float32).
+sampler uses is here: ``PRNGKey``, ``split``, ``fold_in``, ``key_data``,
+``bits`` (uint32 / uint64), ``uniform`` and ``normal`` (float32).
+
+The partitionable counter of element i of a draw is its flat index i, so
+element i does not depend on the shape: ``offset=o`` draws the elements
+o, o + 1, ... of a longer draw, which lets a large batch be drawn in
+chunks with the bits of one whole draw.
 
 All uint32 arithmetic runs in int64 with ``& 0xFFFFFFFF`` masks: PyTorch's
 CPU kernels do not implement ``>>``, ``+`` or ``%`` for uint32.  A uint64
@@ -83,8 +88,9 @@ def _words(key: Key, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     return key[0], key[1]
 
 
-def _iota_2x32(shape: Tuple[int, ...], device) -> Tuple[torch.Tensor, torch.Tensor]:
-    count = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+def _iota_2x32(shape: Tuple[int, ...], device, offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    offset = int(offset)
+    count = torch.arange(offset, offset + math.prod(shape), dtype=torch.int64, device=device)
     return (count >> 32).reshape(shape), (count & M32).reshape(shape)
 
 
@@ -109,11 +115,17 @@ def _shape(shape: Shape) -> Tuple[int, ...]:
     return (int(shape),) if isinstance(shape, int) else tuple(int(s) for s in shape)
 
 
-def bits(key: Key, shape: Shape = (), dtype: str = "uint32", *, device=None) -> torch.Tensor:
+def bits(
+    key: Key, shape: Shape = (), dtype: str = "uint32", *, offset: int = 0, device=None
+) -> torch.Tensor:
     """Random bits as ``jax.random.bits(key, shape, dtype)``: ``"uint32"``
-    values in ``[0, 2^32)``, or ``"uint64"`` values as int64 bit patterns."""
+    values in ``[0, 2^32)``, or ``"uint64"`` values as int64 bit patterns.
+    ``offset`` starts at that flat element of the draw (uint32 only: a
+    uint64 element takes two counters)."""
+    if offset and dtype != "uint32":
+        raise ValueError("offset= is supported for uint32 bits only")
     k1, k2 = _words(key, device)
-    hi, lo = _iota_2x32(_shape(shape), k1.device)
+    hi, lo = _iota_2x32(_shape(shape), k1.device, offset)
     b1, b2 = threefry2x32(k1, k2, hi, lo)
     if dtype == "uint32":
         return b1 ^ b2
@@ -130,7 +142,13 @@ def _f32_daz(x: float) -> float:
 
 
 def uniform(
-    key: Key, shape: Shape = (), *, minval: float = 0.0, maxval: float = 1.0, device=None
+    key: Key,
+    shape: Shape = (),
+    *,
+    minval: float = 0.0,
+    maxval: float = 1.0,
+    offset: int = 0,
+    device=None,
 ) -> torch.Tensor:
     """float32 uniforms in ``[minval, maxval)``, as ``jax.random.uniform(key,
     shape, minval=minval, maxval=maxval)``: the top 23 bits become the
@@ -140,11 +158,27 @@ def uniform(
     The reference runs this with denormals flushed to zero, so a subnormal
     ``minval`` (the naive sampler's 1e-38) counts as 0 and a zero draw stays
     0; so it does here, and the bits equal the reference's on every device.
+    ``offset`` draws the elements from that flat index on (see the module
+    docstring).
     """
     lo, hi = _f32_daz(minval), _f32_daz(maxval)
     span = _f32_daz(hi - lo)
-    b = bits(key, shape, "uint32", device=device)
+    b = bits(key, shape, "uint32", offset=offset, device=device)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     if (span, lo) != (1.0, 0.0):  # else exact: f * 1 + 0 = f
         f = f32math._ftz(f32math.fma(f, span, lo))  # fused, as the reference's code
     return torch.clamp_min(f, lo)
+
+
+# jax draws a normal from uniform(nextafter(-1, 0), 1): the open interval
+_NORMAL_LO = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+_SQRT2 = float(torch.tensor(math.sqrt(2.0), dtype=torch.float32))
+
+
+def normal(key: Key, shape: Shape = (), *, device=None) -> torch.Tensor:
+    """float32 standard normals as ``jax.random.normal(key, shape)``:
+    ``sqrt(2) * erf_inv(u)`` with ``u`` uniform in ``(-1, 1)``, the inverse
+    error function evaluated as the reference's compiled code evaluates it
+    (``f32math.erf_inv``), so the bits are equal on every device."""
+    u = uniform(key, shape, minval=_NORMAL_LO, maxval=1.0, device=device)
+    return _SQRT2 * f32math.erf_inv(u)

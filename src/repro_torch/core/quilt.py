@@ -1,27 +1,35 @@
-"""Algorithm 2 — quilting KPGM samples into a MAGM sample — on PyTorch,
-exact-cell path.
+"""Algorithm 2 — quilting KPGM samples into a MAGM sample — on PyTorch.
 
 Quilting partitions the nodes into D_1..D_B (partition.py) and, for every
 block pair (k, l), draws candidate edges of a full KPGM graph, keeps those
 (x, y) for which some i in D_k has lambda_i = x and some j in D_l has
 lambda_j = y, and maps them to node space (Theorem 3).
 
-The exact-cell mode is one fixed-shape round: every one of the B^2 graphs
-draws the plan-constant budget G of candidates (:func:`_exact_budget`),
-each candidate's cell survives with probability alpha = p / q, decided by a
-per-cell hash shared by its duplicates, and the first occurrence of each
-surviving cell is kept — so every cell is in the graph with exactly its
-Bernoulli(p) probability.  The round is
+:func:`quilt_run` takes one of three paths, as the reference does:
 
-1. the fused counter-PRNG descent + block lookup (the CUDA kernel of
-   ``kernels/quadrant_descent.py`` on a card, its plain version on the CPU);
-2. the acceptance thinning (:func:`_exact_cell_valid`);
-3. the sort-based segmented dedup (``core/dedup.py``).
+- **exact cells** (the default): one fixed-shape round in which every one
+  of the B^2 graphs draws the plan-constant budget G of candidates
+  (:func:`_exact_budget`), each candidate's cell survives with probability
+  alpha = p / q, decided by a per-cell hash shared by its duplicates, and
+  the first occurrence of each surviving cell is kept — so every cell is in
+  the graph with exactly its Bernoulli(p) probability;
+- **ranked device rounds** (``exact_cells=False``, explicit ``targets``,
+  KPGM sessions, or an exact budget over ``DEVICE_MAX_CANDIDATES``): every
+  graph draws X ~ N(m, m - v) and keeps its first X distinct cells, the
+  slot stream growing round by round until the targets are met; a residual
+  left after ``max_rounds`` is finished by the host loop
+  (:func:`_host_quilt_topup`);
+- **the host path** (``backend="host"``, or a ranked round that would pass
+  ``DEVICE_MAX_CANDIDATES``): :func:`_quilt_sample_host`, Algorithm 1 for
+  the B^2 graphs with shared threefry batches (``kpgm._sample_many``).
 
-Runs that the reference takes elsewhere raise ``NotImplementedError`` and
-name the ROADMAP item that will port them: the legacy ranked rounds (an
-explicit target, or a budget over ``DEVICE_MAX_CANDIDATES``), the host
-backend, ball dropping, fused batches and meshes.
+A device round is the fused counter-PRNG descent + block lookup (the CUDA
+kernel ``quilt_prng_descent_lookup`` on a card), the acceptance thinning in
+the exact mode (:func:`_exact_cell_valid`), and the sort-based segmented
+dedup (``core/dedup.py``).  A host round descends threefry uniforms and
+looks them up in the kernel ``quilt_descent_lookup``, then dedupes on the
+host in arrival order.  Ball dropping, the section-5 split, meshes and
+fused batches raise ``NotImplementedError`` naming their ROADMAP item.
 
 :func:`naive_reference_sample` is the O(n^2) exact oracle the quilting
 sampler is tested against.
@@ -31,8 +39,9 @@ from __future__ import annotations
 
 import hashlib
 import math
+import warnings
 from collections import OrderedDict
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,20 +86,38 @@ class QuiltPlan(NamedTuple):
 
 PLAN_STATS = {"partition_builds": 0, "plan_builds": 0}
 _PART_CACHE: "OrderedDict" = OrderedDict()
+_KPGM_PLAN_CACHE: "OrderedDict" = OrderedDict()
 _CACHE_MAX = 8
 
-# one fused round per exact sample; exact_fallbacks counts runs whose budget
-# would leave the exact path (they raise until the legacy rounds are ported)
-DISPATCH_COUNTERS = {"device_rounds": 0, "exact_fallbacks": 0}
+# device_rounds: first device rounds; device_topup_rounds: ranked rounds
+# after the first; host_topup_rounds: rounds of the host top-up loop after
+# the device rounds; degraded_fallbacks: runs whose device rounds ran out
+# (max_rounds or the candidate cap) short of their targets; exact_fallbacks:
+# runs that asked for the exact-cell mode and could not take it
+DISPATCH_COUNTERS = {
+    "device_rounds": 0,
+    "device_topup_rounds": 0,
+    "host_topup_rounds": 0,
+    "degraded_fallbacks": 0,
+    "exact_fallbacks": 0,
+}
 
 # the uniform of the acceptance test comes from the top 24 of 64 hash bits
 _TWO_M24 = 2.0**-24
 
 
 def clear_plan_cache() -> None:
-    """Drop the content-keyed partition cache (plans held by sessions are
-    unaffected)."""
+    """Drop the content-keyed partition and identity-plan caches (plans
+    held by sessions are unaffected)."""
     _PART_CACHE.clear()
+    _KPGM_PLAN_CACHE.clear()
+
+
+def _cache_put(cache: "OrderedDict", key, value) -> None:
+    cache[key] = value
+    cache.move_to_end(key)
+    while len(cache) > _CACHE_MAX:
+        cache.popitem(last=False)
 
 
 def _digest(a: np.ndarray):
@@ -111,8 +138,30 @@ def _plan_constants(thetas: torch.Tensor):
     """(cum, m, std, p_max) of the thetas, in the reference's float32 order."""
     cum = kpgm._level_cumprobs(thetas)
     m, v = kpgm.edge_moments(thetas)
-    std = torch.sqrt(torch.clamp_min(m - v, 0.0))
-    return cum, m, std, kpgm.max_cell_prob(thetas)
+    return cum, m, kpgm._edge_std(m, v), kpgm.max_cell_prob(thetas)
+
+
+def _assemble_plan(F_shape, th: torch.Tensor, state, dev: torch.device) -> QuiltPlan:
+    """A QuiltPlan from a partition state and the thetas, on ``dev``."""
+    part, tables = state
+    cum, m, std, p_max = _plan_constants(th)
+    empty = torch.zeros((0, 8), dtype=torch.int32)
+    plan = QuiltPlan(
+        n=int(F_shape[0]),
+        d=int(F_shape[1]),
+        B=part.B,
+        part=part,
+        thetas=th.to(dev),
+        cum=cum.to(dev),
+        table_cfg=(torch.from_numpy(tables.configs) if tables else empty).to(dev),
+        table_node=(torch.from_numpy(tables.nodes) if tables else empty).to(dev),
+        mean_edges=float(m),
+        std_edges=float(std),
+        p_max=float(p_max),
+        device=dev,
+    )
+    PLAN_STATS["plan_builds"] += 1
+    return plan
 
 
 def build_quilt_plan(
@@ -133,30 +182,26 @@ def build_quilt_plan(
         state = _PART_CACHE.get(fkey)
         if state is None:
             state = _partition_state(F)
-            _PART_CACHE[fkey] = state
-            while len(_PART_CACHE) > _CACHE_MAX:
-                _PART_CACHE.popitem(last=False)
-        _PART_CACHE.move_to_end(fkey)
+        _cache_put(_PART_CACHE, fkey, state)
     else:
         state = _partition_state(F)
-    part, tables = state
-    cum, m, std, p_max = _plan_constants(th)
-    empty = torch.zeros((0, 8), dtype=torch.int32)
-    plan = QuiltPlan(
-        n=int(F.shape[0]),
-        d=int(F.shape[1]),
-        B=part.B,
-        part=part,
-        thetas=th.to(dev),
-        cum=cum.to(dev),
-        table_cfg=(torch.from_numpy(tables.configs) if tables else empty).to(dev),
-        table_node=(torch.from_numpy(tables.nodes) if tables else empty).to(dev),
-        mean_edges=float(m),
-        std_edges=float(std),
-        p_max=float(p_max),
-        device=dev,
-    )
-    PLAN_STATS["plan_builds"] += 1
+    return _assemble_plan(F.shape, th, state, dev)
+
+
+def build_kpgm_plan(thetas, *, device=None) -> QuiltPlan:
+    """Identity-partition plan on ``device``: one block mapping config c to
+    node c, so a plain KPGM graph runs through the quilting engine as the
+    trivial B = 1 quilt.  O(2^d) memory (callers gate on d); content-cached
+    by the thetas and the device, since it depends on nothing else."""
+    dev = resolve_device(device)
+    th = torch.as_tensor(thetas, dtype=torch.float32).cpu()
+    tkey = (_digest(th.numpy()), str(dev))
+    plan = _KPGM_PLAN_CACHE.get(tkey)
+    if plan is None:
+        d = int(th.shape[0])
+        F_id = magm.attributes_from_configs(torch.arange(1 << d), d).numpy()
+        plan = _assemble_plan(F_id.shape, th, _partition_state(F_id), dev)
+    _cache_put(_KPGM_PLAN_CACHE, tkey, plan)
     return plan
 
 
@@ -251,14 +296,21 @@ def _exact_cell_valid(
 def _round_body(
     rkey: torch.Tensor,
     gids: torch.Tensor,
+    targets: torch.Tensor,
     plan: QuiltPlan,
     *,
-    budget: int,
+    a_tot: int,
+    budget: Optional[int],
     use_kernel: bool,
 ):
-    """One exact-cell round over the graphs ``gids`` (``budget`` slots
-    each): descent + lookup, acceptance, dedup.  Returns
-    ``(scfg, dcfg, snode, dnode, take, counts)`` on the plan's device."""
+    """One device round over the graphs ``gids`` with ``a_tot`` slots each:
+    descent + lookup, then the dedup capped at ``targets``.  With an exact
+    ``budget`` (then a_tot == budget) each candidate also passes the
+    acceptance thinning; without one the round ranks the first distinct
+    cells of the cumulative slot stream (slot s draws the same uniforms in
+    every round, so a longer round re-derives the shorter ones as its
+    prefix).  Returns ``(scfg, dcfg, snode, dnode, take, counts)`` on the
+    plan's device."""
     gc = gids.numel()
     seed = ops.counter_seed(rkey)
     lookup = (
@@ -268,47 +320,79 @@ def _round_body(
     )
     scfg, dcfg, snode, dnode = lookup(
         seed, gids, plan.cum, plan.table_cfg, plan.table_node,
-        a_tot=budget, num_blocks=plan.B,
+        a_tot=a_tot, num_blocks=plan.B,
     )
     dev = gids.device
-    local = torch.arange(gc * budget, dtype=torch.int64, device=dev) // budget
-    cum_asks = torch.arange(1, gc + 1, dtype=torch.int64, device=dev) * budget
-    targets = torch.full((gc,), budget, dtype=torch.int64, device=dev)
-    # fold the lookup misses in too: counts are then the realized edge totals
-    valid = (
-        (snode >= 0)
-        & (dnode >= 0)
-        & _exact_cell_valid(
-            accept_salt(rkey, dev), gids.to(torch.int64)[local], scfg, dcfg,
-            plan.thetas, budget,
+    local = torch.arange(gc * a_tot, dtype=torch.int64, device=dev) // a_tot
+    cum_asks = torch.arange(1, gc + 1, dtype=torch.int64, device=dev) * a_tot
+    valid = None
+    if budget is not None:
+        # fold the lookup misses in too: counts are then the realized edge totals
+        valid = (
+            (snode >= 0)
+            & (dnode >= 0)
+            & _exact_cell_valid(
+                accept_salt(rkey, dev), gids.to(torch.int64)[local], scfg, dcfg,
+                plan.thetas, budget,
+            )
         )
-    )
     take, counts = dedup.segmented_unique_mask(
         local, scfg, dcfg, cum_asks, targets, node_bits=plan.d, valid=valid
     )
     return scfg, dcfg, snode, dnode, take, counts
 
 
+class DeviceBatchUnavailable(RuntimeError):
+    """Raised by :func:`quilt_run` when explicit targets would need the host
+    path, which draws its own targets; callers (``KPGMSampler``) run their
+    own target-honoring host loop instead."""
+
+
 class QuiltRun(NamedTuple):
-    """One executed exact-cell quilting run: the round's fixed-shape device
-    buffers and the per-graph counts."""
+    """One executed quilting run.
+
+    A device run holds the last round's fixed-shape buffers on the device
+    (``snode``, ``dnode``, ``keep``) plus ``tail``, the ``(graph, (E, 2))``
+    pieces of the host top-up appended after them in arrival order; a host
+    run holds ``host_edges`` and ``host_stats`` instead."""
 
     plan: QuiltPlan
-    counts: np.ndarray  # (B^2,) per-graph edge counts realized by the round
-    snode: torch.Tensor  # (B^2 * slots,) candidate node ids, on device
-    dnode: torch.Tensor
-    keep: torch.Tensor  # bool: taken AND both lookups hit, on device
+    # (B^2,) per-graph targets (the realized counts when exact; on a host
+    # run the targets the host path drew) and distinct cells taken
+    targets: np.ndarray
+    counts: np.ndarray
+    snode: Optional[torch.Tensor]  # (B^2 * slots,) candidate node ids, on device
+    dnode: Optional[torch.Tensor]
+    keep: Optional[torch.Tensor]  # bool: taken AND both lookups hit, on device
     slots_per_graph: int
+    tail: Tuple[Tuple[int, np.ndarray], ...]
+    host_edges: Optional[np.ndarray]
+    host_stats: Optional[QuiltStats]
 
     def kept_edges(self) -> int:
-        return int(self.keep.sum())
+        if self.host_edges is not None:
+            return int(self.host_edges.shape[0])
+        kept = int(self.keep.sum()) if self.keep is not None else 0
+        return kept + sum(int(p.shape[0]) for _, p in self.tail)
 
     def edges(self) -> np.ndarray:
-        """(E, 2) int64 host array of the kept edges, in candidate order."""
-        pairs = torch.stack([self.snode[self.keep], self.dnode[self.keep]], dim=1)
-        return pairs.to(torch.int64).cpu().numpy()
+        """(E, 2) int64 host array: the device edges in candidate order,
+        then the tail pieces."""
+        if self.host_edges is not None:
+            return self.host_edges
+        pieces: List[np.ndarray] = []
+        if self.keep is not None:
+            pairs = torch.stack([self.snode[self.keep], self.dnode[self.keep]], dim=1)
+            pieces.append(pairs.to(torch.int64).cpu().numpy())
+        pieces.extend(p for _, p in self.tail)
+        pieces = [p for p in pieces if p.size]
+        if not pieces:
+            return np.zeros((0, 2), dtype=np.int64)
+        return np.concatenate(pieces, axis=0)
 
     def stats(self, kept: Optional[int] = None) -> QuiltStats:
+        if self.host_stats is not None:
+            return self.host_stats
         return QuiltStats(
             B=self.plan.B,
             num_kpgm_draws=self.plan.num_graphs,
@@ -321,30 +405,23 @@ class QuiltRun(NamedTuple):
 
 
 def unported_reason(
-    *,
-    backend: str = "auto",
-    mesh=None,
-    exact_cells: Optional[bool] = None,
-    split: bool = False,
-    num_samples: int = 1,
-    targets=None,
+    *, backend: str = "auto", mesh=None, split: bool = False, num_samples: int = 1
 ) -> Optional[str]:
     """Which requested path the port does not run yet, and the ROADMAP
-    queue-1 item that will port it; None for the exact-cell main path."""
-    legacy = "(ROADMAP queue 1: the legacy ranked rounds and the host fallback)"
+    queue-1 item that will port it; None for a path it runs."""
     if backend == "balldrop":
         return "backend='balldrop' (ROADMAP queue 1: ball dropping)"
-    if backend == "host":
-        return f"backend='host' {legacy}"
     if split:
         return "split=True (ROADMAP queue 1: the section-5 split)"
     if mesh is not None:
         return "mesh= (ROADMAP queue 1: resilience and serving)"
-    if exact_cells is False or targets is not None:
-        return f"exact_cells=False / explicit targets {legacy}"
     if num_samples != 1:
         return "num_samples > 1 (ROADMAP queue 1: stream and batch)"
     return None
+
+
+def _clip_targets(x: np.ndarray, ncfg: int) -> np.ndarray:
+    return np.clip(x, 0, min(ncfg * ncfg, 2**62))
 
 
 def quilt_run(
@@ -353,47 +430,181 @@ def quilt_run(
     *,
     num_samples: int = 1,
     targets: Optional[np.ndarray] = None,
+    max_rounds: int = 8,
+    oversample: float = 1.05,
     backend: str = "auto",
     use_kernel: Optional[bool] = None,
     mesh=None,
     exact_cells: Optional[bool] = None,
 ) -> QuiltRun:
-    """Run the exact-cell quilting round of ``plan`` for ``key``, on the
-    plan's device.
+    """Run the quilting engine of ``plan`` for ``key`` on the plan's device;
+    the same key gives the reference's edges, on every path.
 
-    ``use_kernel`` None or True runs the fused lookup through its kernel
-    wrapper (the CUDA kernel for a plan on a card); False asks for the plain
-    PyTorch version explicitly.  The key is split as the reference splits
-    it (once for the edge-count draw the exact mode does not use, once for
-    the round key), so the same key gives the reference's edges.
+    ``exact_cells`` (default: on when no ``targets`` are given) selects the
+    exact-cell round; runs that cannot take it (explicit targets, the host
+    backend, a budget over ``DEVICE_MAX_CANDIDATES``, the last counted in
+    ``DISPATCH_COUNTERS["exact_fallbacks"]``) take the ranked rounds.  ``targets`` overrides the per-graph N(m, m - v) draws
+    (the key is split alike either way).  The ranked rounds run on the
+    device while ``B^2 * slots`` stays within ``DEVICE_MAX_CANDIDATES``
+    (``backend="device"`` forces them), else the run takes the host path —
+    which draws its own targets, so explicit ``targets`` raise
+    :class:`DeviceBatchUnavailable` there.  ``use_kernel`` None or True runs
+    the device rounds' lookup through its kernel wrapper, False through its
+    plain version.
     """
-    reason = unported_reason(
-        backend=backend, mesh=mesh, exact_cells=exact_cells,
-        num_samples=num_samples, targets=targets,
-    )
+    reason = unported_reason(backend=backend, mesh=mesh, num_samples=num_samples)
     if reason is not None:
         raise NotImplementedError(f"{reason} is not ported yet")
     gtot = plan.num_graphs
-    budget = _exact_budget(plan.p_max, plan.mean_edges)
-    if budget is None or gtot * budget > kpgm.DEVICE_MAX_CANDIDATES:
+    ncfg = 1 << plan.d
+    targets_given = targets is not None
+    use_kernel = True if use_kernel is None else bool(use_kernel)
+
+    exact = (not targets_given) if exact_cells is None else bool(exact_cells)
+    exact = exact and not targets_given and backend in ("auto", "device") and gtot > 0
+    budget = _exact_budget(plan.p_max, plan.mean_edges) if exact else None
+    if exact and (budget is None or gtot * budget > kpgm.DEVICE_MAX_CANDIDATES):
         DISPATCH_COUNTERS["exact_fallbacks"] += 1
-        raise NotImplementedError(
-            f"the exact-cell round needs {gtot} graphs x {budget} candidates, "
-            f"over DEVICE_MAX_CANDIDATES={kpgm.DEVICE_MAX_CANDIDATES}; the "
-            "legacy ranked rounds it falls back to are not ported yet "
-            "(ROADMAP queue 1: the legacy ranked rounds and the host fallback)"
-        )
-    key, _ = prng.split(key)  # the edge-count draw's key: unused when exact
-    _, rkey = prng.split(key)
-    gids = torch.arange(gtot, dtype=torch.int32, device=plan.device)
-    scfg, dcfg, snode, dnode, take, counts = _round_body(
-        rkey, gids, plan, budget=budget,
-        use_kernel=True if use_kernel is None else bool(use_kernel),
+        exact, budget = False, None
+
+    key, sub = prng.split(key)
+    if exact:
+        targets = np.full(gtot, budget, dtype=np.int64)
+        ask0 = budget
+    else:
+        if targets is None:
+            # float32 arithmetic on the host, as the reference's numpy does it
+            z = prng.normal(sub, (gtot,)).numpy()
+            targets = _clip_targets(
+                np.round(z * np.float32(plan.std_edges) + np.float32(plan.mean_edges)), ncfg
+            ).astype(np.int64)
+        else:
+            targets = _clip_targets(np.asarray(targets, dtype=np.int64).reshape(gtot), ncfg)
+        ask0 = dedup.uniform_ask(targets, oversample)
+    total = int(targets.sum())
+
+    # the decision depends on gtot and the first ask only, as the
+    # reference's does (layout-invariant)
+    use_device = exact or backend == "device" or (
+        backend == "auto" and gtot * ask0 <= kpgm.DEVICE_MAX_CANDIDATES
     )
-    DISPATCH_COUNTERS["device_rounds"] += 1
-    counts_h = counts.cpu().numpy().astype(np.int64)
-    keep = take & (snode >= 0) & (dnode >= 0)
-    return QuiltRun(plan, counts_h, snode, dnode, keep, budget)
+    if not use_device:
+        if targets_given:
+            raise DeviceBatchUnavailable(
+                f"targets override needs the device backend (backend={backend!r}, "
+                f"candidates={gtot * ask0})"
+            )
+        edges, st, host_targets, host_counts = _quilt_sample_host(
+            key, plan, max_rounds=max_rounds, oversample=oversample
+        )
+        return QuiltRun(plan, host_targets, host_counts, None, None, None, 0, (), edges, st)
+
+    tail: List[Tuple[int, np.ndarray]] = []
+    counts = np.zeros(gtot, dtype=np.int64)
+    shortfall = targets.copy()
+    outs = None
+    key, rkey = prng.split(key)
+    a_tot = 0
+    if total > 0:
+        gids = torch.arange(gtot, dtype=torch.int32, device=plan.device)
+        tdev = torch.from_numpy(targets).to(plan.device)
+        for r in range(1 if exact else max_rounds):
+            ask = budget if exact else dedup.uniform_ask(shortfall, oversample)
+            if ask == 0:
+                break
+            if a_tot and gtot * (a_tot + ask) > kpgm.DEVICE_MAX_CANDIDATES:
+                # the cumulative stream would outgrow the device budget: the
+                # host loop finishes the residual
+                break
+            a_tot += ask
+            outs = _round_body(
+                rkey, gids, tdev, plan, a_tot=a_tot, budget=budget, use_kernel=use_kernel
+            )
+            DISPATCH_COUNTERS["device_rounds" if r == 0 else "device_topup_rounds"] += 1
+            counts = outs[5].cpu().numpy().astype(np.int64)
+            # the exact thinning already realized each cell's draw
+            shortfall = np.zeros_like(targets) if exact else targets - counts
+            if shortfall.max(initial=0) <= 0:
+                break
+
+    snode = dnode = keep = None
+    if outs is not None:
+        scfg, dcfg, snode, dnode, take, _ = outs
+        keep = take & (snode >= 0) & (dnode >= 0)
+        if shortfall.max(initial=0) > 0:
+            DISPATCH_COUNTERS["degraded_fallbacks"] += 1
+            warnings.warn(
+                f"device rounds exhausted (max_rounds={max_rounds}, {a_tot} slots/graph) "
+                f"with {int(shortfall.sum())} edges still short: finishing the residual "
+                "with the host rejection loop (raise max_rounds or oversample to stay "
+                "device-resident)",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+            flat = (scfg[take].to(torch.int64) * ncfg + dcfg[take].to(torch.int64)).cpu().numpy()
+            seen_cfg = np.split(flat, np.cumsum(counts)[:-1])
+            counts = _host_quilt_topup(key, plan, targets, seen_cfg, tail, max_rounds, oversample)
+    if exact:
+        targets = counts.copy()
+    return QuiltRun(plan, targets, counts, snode, dnode, keep, a_tot, tuple(tail), None, None)
+
+
+def _host_quilt_topup(
+    key: torch.Tensor,
+    plan: QuiltPlan,
+    targets: np.ndarray,
+    seen_cfg: List[np.ndarray],
+    tail: List[Tuple[int, np.ndarray]],
+    max_rounds: int,
+    oversample: float,
+) -> np.ndarray:
+    """Finish the shortfall the device rounds left with the host rounds
+    (``kpgm._host_rounds``): each round's threefry batch descended and
+    looked up in the ``quilt_descent_lookup`` kernel (graph g = k * B + l
+    in blocks k and l), each graph's fresh cells appended to ``seen_cfg``.
+    Appends ``(graph, (E, 2))`` pieces of the cells whose two lookups hit
+    to ``tail``; returns the per-graph counts."""
+    lookup_spec = (plan.B, (plan.table_cfg, plan.table_node))
+    rounds = kpgm._host_rounds(key, plan.cum, 1 << plan.d, targets, seen_cfg, max_rounds, oversample, lookup_spec)
+    for fresh in rounds:
+        DISPATCH_COUNTERS["host_topup_rounds"] += 1
+        for g, sn, dn in fresh:
+            hit = (sn >= 0) & (dn >= 0)
+            if hit.any():
+                tail.append((g, np.stack([sn[hit], dn[hit]], axis=1)))
+    return np.array([k.size for k in seen_cfg], dtype=np.int64)
+
+
+def _quilt_sample_host(key: torch.Tensor, plan: QuiltPlan, *, max_rounds: int, oversample: float):
+    """The host path: Algorithm 1 for the B^2 graphs with shared batches
+    (``kpgm._sample_many``), each candidate looked up in the kernel
+    ``quilt_descent_lookup`` so its node ids ride with its config through
+    the arrival-order dedup; the edges are the kept cells whose two lookups
+    hit, graph by graph.  Returns ``(edges, stats, targets, counts)``, the
+    last two per graph."""
+    B = plan.B
+    key, sub = prng.split(key)
+    graphs, targets = kpgm._sample_many(
+        sub, plan.thetas, B * B, max_rounds=max_rounds, oversample=oversample,
+        backend="auto", device=plan.device, lookup_tables=(B, (plan.table_cfg, plan.table_node)),
+    )
+    edges = []
+    for s, d in zip(graphs.snode, graphs.dnode):
+        hit = (s >= 0) & (d >= 0)
+        if hit.any():
+            edges.append(np.stack([s[hit], d[hit]], axis=1))
+    out = np.concatenate(edges, axis=0) if edges else np.zeros((0, 2), dtype=np.int64)
+    counts = graphs.sizes()
+    stats = QuiltStats(
+        B=B,
+        num_kpgm_draws=B * B,
+        kpgm_edges_total=int(counts.sum()),
+        kept_edges=out.shape[0],
+        heavy_groups=0,
+        light_nodes=plan.n,
+        bprime=None,
+    )
+    return out, stats, targets, counts
 
 
 def naive_reference_sample(key: torch.Tensor, params: magm.MAGMParams, F, *, device=None) -> np.ndarray:

@@ -22,8 +22,9 @@
 // device memory; the (d, 4) table always sits in shared memory, and the
 // (B, L) tables do too when 2*B*L*4 bytes fit the opt-in limit (n = 2^12:
 // 145 KB), else they are read from global memory through the read-only path
-// (n = 2^15: 1.16 MB, L2-resident).  Blocks stride over rows so each block
-// loads the tables once.
+// (n = 2^15: 1.16 MB, L2-resident); the search is csrc/sorted_lookup.cuh,
+// shared with quilt_descent_lookup.cu.  Blocks stride over rows so each
+// block loads the tables once.
 //
 // All hash arithmetic is native uint32; the uniform's conversion is exact
 // (24 bits), so build WITHOUT --use_fast_math: the compares must be the
@@ -33,6 +34,7 @@
 #include <cuda_runtime.h>
 
 #include "counter_hash.cuh"
+#include "sorted_lookup.cuh"
 
 namespace {
 
@@ -44,35 +46,6 @@ using qkg::kMaxLevels;
 constexpr uint32_t kRank0 = kChannels - 2;
 constexpr int kThreads = 512;
 constexpr size_t kCumBytes = 4 * 32 * sizeof(float);  // (d <= 31, 4) f32, 16 B aligned
-
-template <bool kSmem>
-__device__ __forceinline__ int32_t load(const int32_t* p) {
-  if (kSmem) return *p;
-  return __ldg(p);
-}
-
-// First position in row `row` whose config is >= target, by the reference's
-// fixed `steps` iterations with the probe index clamped to L - 1; the node
-// id there on an exact hit, else -1.
-template <bool kSmem>
-__device__ __forceinline__ int32_t lookup(const int32_t* cfg,
-                                          const int32_t* node, int row,
-                                          int32_t target, int L, int steps) {
-  const int32_t* c = cfg + static_cast<size_t>(row) * L;
-  int lo = 0, hi = L;
-  for (int s = 0; s < steps; ++s) {
-    const int mid = (lo + hi) >> 1;
-    const int32_t probe = load<kSmem>(c + min(mid, L - 1));
-    const bool active = lo < hi;
-    const bool right = active && probe < target;
-    lo = right ? mid + 1 : lo;
-    hi = (active && !right) ? mid : hi;
-  }
-  const int pos = min(lo, L - 1);
-  return load<kSmem>(c + pos) == target
-             ? load<kSmem>(node + static_cast<size_t>(row) * L + pos)
-             : -1;
-}
 
 template <bool kSmem, bool kRanks>
 __global__ void __launch_bounds__(kThreads)
@@ -92,14 +65,8 @@ __global__ void __launch_bounds__(kThreads)
   const int32_t* cfg = tcfg;
   const int32_t* node = tnode;
   if (kSmem) {
-    int32_t* s_cfg = reinterpret_cast<int32_t*>(smem + kCumBytes);
-    int32_t* s_node = s_cfg + static_cast<size_t>(B) * L;
-    for (int i = threadIdx.x; i < B * L; i += blockDim.x) {
-      s_cfg[i] = tcfg[i];
-      s_node[i] = tnode[i];
-    }
-    cfg = s_cfg;
-    node = s_node;
+    cfg = qkg::stage_tables(smem + kCumBytes, tcfg, tnode, B, L);
+    node = cfg + static_cast<size_t>(B) * L;
   }
   __syncthreads();
 
@@ -131,8 +98,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     scfg_out[row] = sc;
     dcfg_out[row] = dc;
-    snode_out[row] = lookup<kSmem>(cfg, node, kb, sc, L, steps);
-    dnode_out[row] = lookup<kSmem>(cfg, node, lb, dc, L, steps);
+    snode_out[row] = qkg::lookup<kSmem>(cfg, node, kb, B, sc, L, steps);
+    dnode_out[row] = qkg::lookup<kSmem>(cfg, node, lb, B, dc, L, steps);
   }
 }
 
@@ -160,28 +127,6 @@ cudaError_t launch(int sms, size_t shmem, cudaStream_t stream, uint32_t s0,
   return cudaGetLastError();
 }
 
-// Dynamic shared memory of a launch: the cumulative table, plus the (B, L)
-// tables when they fit the device's opt-in limit.  Returns 0 on failure.
-size_t shared_bytes(int device, int B, int L, bool* tables_in_smem) {
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess) {
-    return 0;
-  }
-  const size_t table_bytes = 2 * static_cast<size_t>(B) * L * sizeof(int32_t);
-  *tables_in_smem = kCumBytes + table_bytes <= static_cast<size_t>(optin);
-  return kCumBytes + (*tables_in_smem ? table_bytes : 0);
-}
-
-int bit_length(int x) {
-  int b = 0;
-  while (x > 0) {
-    ++b;
-    x >>= 1;
-  }
-  return b;
-}
-
 }  // namespace
 
 extern "C" {
@@ -202,13 +147,13 @@ int qkg_quilt_prng_descent_lookup(int device, uint32_t s0, uint32_t s1,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = gc * a_tot;
-  const int steps = bit_length(L - 1 > 1 ? L - 1 : 1) + 1;
+  const int steps = qkg::search_steps(L);
 
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   bool use_smem = false;
-  const size_t shmem = shared_bytes(device, B, L, &use_smem);
+  const size_t shmem = qkg::table_shared_bytes(device, B, L, kCumBytes, &use_smem);
   if (shmem == 0) return static_cast<int>(cudaErrorInvalidDevice);
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -239,7 +184,7 @@ int qkg_quilt_prng_descent_lookup(int device, uint32_t s0, uint32_t s1,
 // 1 when a call with these tables keeps them in shared memory.
 int qkg_tables_in_smem(int device, int B, int L) {
   bool in_smem = false;
-  if (shared_bytes(device, B, L, &in_smem) == 0) return -1;
+  if (qkg::table_shared_bytes(device, B, L, kCumBytes, &in_smem) == 0) return -1;
   return in_smem ? 1 : 0;
 }
 

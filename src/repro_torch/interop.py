@@ -1,5 +1,8 @@
 """State carried over from the JAX package.
 
+:func:`from_reference` serves MAGM sessions and MAGFIT,
+:func:`kpgm_from_reference` KPGM sessions.
+
 A sampler has no weights; what the two packages must share to give the
 same graph is the initiator thetas, the attribute matrix and the key.
 :func:`from_reference` takes them as the numpy arrays the JAX package
@@ -15,7 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import magm
+from repro_torch.core import kpgm, magm
 
 
 def from_reference(
@@ -36,8 +39,20 @@ def from_reference(
     if mu is None:
         mu = F.mean(axis=0) if F.shape[0] else np.full(th.shape[0], 0.5)
     mu_t = torch.from_numpy(np.broadcast_to(np.asarray(mu, np.float32), (th.shape[0],)).copy())
+    return magm.MAGMParams(torch.from_numpy(th.copy()), mu_t), F, _key(key_data)
+
+
+def _key(key_data) -> torch.Tensor:
     words = np.asarray(key_data).astype(np.uint32).reshape(-1)
     if words.size != 2:
         raise ValueError(f"key_data must hold two uint32 words, got {words.size}")
-    key = torch.from_numpy(words.astype(np.int64))
-    return magm.MAGMParams(torch.from_numpy(th.copy()), mu_t), F, key
+    return torch.from_numpy(words.astype(np.int64))
+
+
+def kpgm_from_reference(thetas: np.ndarray, key_data: np.ndarray) -> Tuple[kpgm.KPGMParams, torch.Tensor]:
+    """``(params, key)`` of the port from a reference ``KPGMParams``'s
+    ``(d, 2, 2)`` float32 thetas and raw uint32 key words."""
+    th = np.asarray(thetas, dtype=np.float32)
+    if th.ndim != 3 or th.shape[1:] != (2, 2):
+        raise ValueError(f"thetas must be (d, 2, 2), got {th.shape}")
+    return kpgm.KPGMParams(torch.from_numpy(th.copy())), _key(key_data)

@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import f32math, magm, prng
+from repro_torch.core import f32math, kpgm, magm, prng
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import bernoulli_tile as _bt
 from repro_torch.kernels import magm_logprob as _ml
@@ -29,6 +29,8 @@ rank_pair = _qd.rank_pair
 
 quilt_prng_descent_lookup = _qd.quilt_prng_descent_lookup
 quilt_prng_descent_lookup_plain = _qd.quilt_prng_descent_lookup_plain
+quadrant_descent = _qd.quadrant_descent
+quilt_descent_lookup = _qd.quilt_descent_lookup
 
 # the reference draws the naive tile's uniforms over the shape padded to
 # its (256, 256) Pallas blocks; the same draw gives the same mask
@@ -42,6 +44,8 @@ def kernel_launches() -> dict:
         "quadrant_descent_prng": _qd.PRNG_LAUNCHES,
         "magm_logprob": _ml.LAUNCHES,
         "bernoulli_tile": _bt.LAUNCHES,
+        "quadrant_descent": _qd.DESCENT_LAUNCHES,
+        "quilt_descent_lookup": _qd.LOOKUP_LAUNCHES,
     }
 
 
@@ -51,6 +55,8 @@ def reset_kernel_launches() -> None:
     _qd.PRNG_LAUNCHES = 0
     _ml.LAUNCHES = 0
     _bt.LAUNCHES = 0
+    _qd.DESCENT_LAUNCHES = 0
+    _qd.LOOKUP_LAUNCHES = 0
 
 
 def _batch_cumprobs(thetas) -> torch.Tensor:
@@ -82,6 +88,19 @@ def sample_edge_batch_prng(
     return _qd.quadrant_descent_prng(
         counter_seed(key), cum, num_slots=int(num_edges), tpu_native=bool(tpu_native)
     )
+
+
+def sample_edge_batch(key: torch.Tensor, thetas, num_edges: int, *, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm-1 batch of ``num_edges`` KPGM candidate edges from the
+    threefry uniforms of ``key``: int32 ``(src, dst)`` on ``device``
+    (default ``"cuda"``; raises without a card), equal to the reference's
+    ``sample_edge_batch_pallas`` for the same key.  The (num_edges, d) draw
+    goes to the ``quadrant_descent`` kernel in row chunks (see
+    ``kpgm.descend_draw``); the reference pads the draw to 512 rows, which
+    changes none of the first num_edges rows, so nothing is padded here.
+    ``cum`` is computed eagerly, as that function computes it."""
+    dev = resolve_device(device)
+    return kpgm.descend_draw(key, _batch_cumprobs(thetas).to(dev), int(num_edges))
 
 
 def _packed_bilinear(thetas, device) -> Tuple[torch.Tensor, ...]:

@@ -1,6 +1,6 @@
-"""Counter-PRNG quadrant descent, with and without the per-block lookup:
-the CUDA kernels' wrappers, their plain PyTorch versions, and the
-counter-hash family.
+"""Quadrant descent, with and without the per-block lookup: the CUDA
+kernels' wrappers, their plain PyTorch versions, and the counter-hash
+family.
 
 Candidate row ``s`` of graph ``g`` draws its level-``k`` uniform from
 ``counter_u01(seed, g, s * PRNG_CHANNELS + k)``, a pure function of the round
@@ -16,6 +16,14 @@ version :func:`quilt_prng_descent_lookup_plain` on a CPU tensor.
 :func:`quadrant_descent_prng` (``csrc/quadrant_descent_prng.cu``, plain
 version :func:`quadrant_descent_prng_plain`) is the plain KPGM descent of
 a batch of slots of graph 0, with no lookup.
+
+The two older kernels read their uniforms from an ``(N, d)`` float32
+operand instead (the threefry draws of the ranked host rounds):
+:func:`quadrant_descent` (``csrc/quadrant_descent.cu``) descends it, and
+:func:`quilt_descent_lookup` (``csrc/quilt_descent_lookup.cu``) also looks
+each config up in the block rows ``kb``/``lb`` of the tables; their plain
+versions are :func:`quadrant_descent_plain` and
+:func:`quilt_descent_lookup_plain`.
 """
 
 from __future__ import annotations
@@ -119,14 +127,17 @@ def _block_pairs(s0, s1, gid, base, num_blocks: int, ranks: bool):
 
 def _lookup(table_cfg: torch.Tensor, table_node: torch.Tensor, row, target):
     """Lower bound of ``target`` in row ``row`` of the ascending (B, L)
-    tables, clamped to L - 1; the node id on an exact hit, else -1."""
+    tables, clamped to L - 1; the node id on an exact hit, else -1 (also
+    for a row outside [0, B))."""
     B, L = table_cfg.shape
     cfg = table_cfg.to(torch.int64)
+    inside = (row >= 0) & (row < B)
+    row = torch.where(inside, row, torch.zeros_like(row))
     rows = torch.arange(B, dtype=torch.int64, device=cfg.device)
     flat = ((rows[:, None] << 32) | cfg).reshape(-1)  # ascending overall
     pos = torch.searchsorted(flat, (row << 32) | target) - row * L
     idx = row * L + pos.clamp_max(L - 1)
-    hit = cfg.reshape(-1)[idx] == target
+    hit = (cfg.reshape(-1)[idx] == target) & inside
     node = table_node.reshape(-1)[idx]
     return torch.where(hit, node, torch.full_like(node, -1))
 
@@ -172,12 +183,17 @@ def quilt_prng_descent_lookup_plain(
 
 # launches of each CUDA kernel since import (or since a caller reset it);
 # only the CUDA branch of quilt_prng_descent_lookup adds to LAUNCHES, only
-# that of quadrant_descent_prng to PRNG_LAUNCHES
+# that of quadrant_descent_prng to PRNG_LAUNCHES, of quadrant_descent to
+# DESCENT_LAUNCHES and of quilt_descent_lookup to LOOKUP_LAUNCHES
 LAUNCHES = 0
 PRNG_LAUNCHES = 0
+DESCENT_LAUNCHES = 0
+LOOKUP_LAUNCHES = 0
 
 _LIB = None
 _PRNG_LIB = None
+_DESCENT_LIB = None
+_LOOKUP_LIB = None
 
 
 def _library():
@@ -372,3 +388,166 @@ def quadrant_descent_prng(
         raise RuntimeError(f"quadrant_descent_prng launch failed: {msg} ({rc})")
     PRNG_LAUNCHES += 1
     return src, dst
+
+
+def quadrant_descent_plain(u: torch.Tensor, cum: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch: (N, d) float32 uniforms and
+    the (d, 4) cumulative table -> int32 ``(src, dst)``, on u's device."""
+    return _descend_body(u, cum.to(u.device))
+
+
+def quilt_descent_lookup_plain(
+    u: torch.Tensor,
+    cum: torch.Tensor,
+    kb: torch.Tensor,
+    lb: torch.Tensor,
+    table_cfg: torch.Tensor,
+    table_node: torch.Tensor,
+):
+    """The kernel's function in plain PyTorch: the descent of
+    :func:`quadrant_descent_plain`, then each row's src config looked up in
+    row ``kb`` and its dst config in row ``lb`` of the (B, L) tables.
+    Returns int32 ``(src_cfg, dst_cfg, src_node, dst_node)``, node -1 where
+    the config is not in the block."""
+    scfg, dcfg = _descend_body(u, cum.to(u.device))
+    snode = _lookup(table_cfg, table_node, kb.reshape(-1).to(torch.int64), scfg.to(torch.int64))
+    dnode = _lookup(table_cfg, table_node, lb.reshape(-1).to(torch.int64), dcfg.to(torch.int64))
+    return scfg, dcfg, snode, dnode
+
+
+def _uniforms_library(name: str):
+    """The built library of ``csrc/<name>.cu`` with its C signatures."""
+    lib = _build.load(name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "quadrant_descent":
+        lib.qkg_quadrant_descent.argtypes = [i, p, p, i, i, p, p, p]
+        lib.qkg_quadrant_descent.restype = i
+    else:
+        lib.qkg_quilt_descent_lookup.argtypes = [i, p, p, i, p, p, p, p, i, i, i, p, p, p, p, p]
+        lib.qkg_quilt_descent_lookup.restype = i
+        lib.qkg_descent_tables_in_smem.argtypes = [i, i, i, i]
+        lib.qkg_descent_tables_in_smem.restype = i
+    lib.qkg_error_string.argtypes = [i]
+    lib.qkg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _descent_library():
+    global _DESCENT_LIB
+    if _DESCENT_LIB is None:
+        _DESCENT_LIB = _uniforms_library("quadrant_descent")
+    return _DESCENT_LIB
+
+
+def _lookup_library():
+    global _LOOKUP_LIB
+    if _LOOKUP_LIB is None:
+        _LOOKUP_LIB = _uniforms_library("quilt_descent_lookup")
+    return _LOOKUP_LIB
+
+
+def descent_tables_in_shared_memory(d: int, table_cfg: torch.Tensor) -> bool:
+    """Whether quilt_descent_lookup keeps these (B, L) tables in shared
+    memory at depth ``d``."""
+    B, L = table_cfg.shape
+    return _lookup_library().qkg_descent_tables_in_smem(table_cfg.device.index or 0, int(d), B, L) == 1
+
+
+def _check_uniforms(u: torch.Tensor, cum: torch.Tensor) -> None:
+    _check_cum(cum)
+    if u.dtype != torch.float32 or not u.is_contiguous():
+        raise TypeError(f"u must be contiguous float32, got {u.dtype}")
+    if u.ndim != 2 or u.shape[1] != cum.shape[0]:
+        raise ValueError(f"u must be (N, {cum.shape[0]}), got {tuple(u.shape)}")
+    if cum.device != u.device:
+        raise ValueError(f"cum is on {cum.device}, u on {u.device}")
+    if u.shape[0] >= 2**31:
+        raise ValueError("u must have fewer than 2^31 rows")
+
+
+def _raise_on(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.qkg_error_string(rc).decode()} ({rc})")
+
+
+def quadrant_descent(u: torch.Tensor, cum: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quadrant descent of an (N, d) float32 uniforms operand: int32
+    ``(src, dst)``.
+
+    On a CUDA tensor this launches the CUDA kernel on the current stream and
+    raises if the launch fails; on a CPU tensor it is the plain version.
+    On CUDA ``u`` is contiguous and ``cum`` a contiguous float32 (d, 4) on
+    the same device.
+    """
+    global DESCENT_LAUNCHES
+    dev = u.device
+    if dev.type == "cpu":
+        return quadrant_descent_plain(u, cum)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    _check_uniforms(u, cum)
+    n = u.shape[0]
+    src = torch.empty(n, dtype=torch.int32, device=dev)
+    dst = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return src, dst
+    lib = _descent_library()
+    rc = lib.qkg_quadrant_descent(
+        _build.device_index(dev), u.data_ptr(), cum.data_ptr(), cum.shape[0], n,
+        src.data_ptr(), dst.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "quadrant_descent")
+    DESCENT_LAUNCHES += 1
+    return src, dst
+
+
+def quilt_descent_lookup(
+    u: torch.Tensor,
+    cum: torch.Tensor,
+    kb: torch.Tensor,
+    lb: torch.Tensor,
+    table_cfg: torch.Tensor,
+    table_node: torch.Tensor,
+):
+    """Descent of an (N, d) float32 uniforms operand + lookup of each row's
+    configs in block rows ``kb`` / ``lb`` (N,) of the (B, L) tables: four
+    int32 (N,) arrays ``(src_cfg, dst_cfg, src_node, dst_node)``, node -1 on
+    a miss.
+
+    On a CUDA tensor this launches the CUDA kernel on the current stream and
+    raises if the launch fails; on a CPU tensor it is the plain version.
+    On CUDA every argument is contiguous, on u's device; ``kb``, ``lb`` and
+    the tables int32.
+    """
+    global LOOKUP_LAUNCHES
+    dev = u.device
+    if dev.type == "cpu":
+        return quilt_descent_lookup_plain(u, cum, kb, lb, table_cfg, table_node)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    _check_uniforms(u, cum)
+    n = u.shape[0]
+    kb, lb = kb.reshape(-1), lb.reshape(-1)
+    for name, t in (("kb", kb), ("lb", lb), ("table_cfg", table_cfg), ("table_node", table_node)):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous int32 on {dev}, got {t.dtype} on {t.device}")
+    if kb.numel() != n or lb.numel() != n:
+        raise ValueError(f"kb and lb must hold N={n} rows, got {kb.numel()} and {lb.numel()}")
+    if table_cfg.ndim != 2 or table_cfg.shape != table_node.shape or 0 in table_cfg.shape:
+        raise ValueError(
+            f"tables must be two equal non-empty (B, L), got "
+            f"{tuple(table_cfg.shape)} and {tuple(table_node.shape)}"
+        )
+    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
+    if n == 0:
+        return tuple(outs)
+    lib = _lookup_library()
+    B, L = table_cfg.shape
+    rc = lib.qkg_quilt_descent_lookup(
+        _build.device_index(dev), u.data_ptr(), cum.data_ptr(), cum.shape[0],
+        kb.data_ptr(), lb.data_ptr(), table_cfg.data_ptr(), table_node.data_ptr(), B, L, n,
+        *(o.data_ptr() for o in outs), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "quilt_descent_lookup")
+    LOOKUP_LAUNCHES += 1
+    return tuple(outs)

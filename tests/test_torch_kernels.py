@@ -257,3 +257,215 @@ def test_cuda_quadrant_descent_prng_equals_plain(cuda_device, d, slots):
     assert qd.PRNG_LAUNCHES == before + 1
     want = qd.quadrant_descent_prng_plain(SEED, cum, num_slots=slots)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# --- quadrant_descent / quilt_descent_lookup: the uniforms-operand kernels ---
+
+
+def _uniforms(n, d, seed, cum=None):
+    """(n, d) float32 uniforms; with ``cum``, some set exactly on a threshold
+    (the compares are >=)."""
+    rng = np.random.default_rng(seed)
+    u = rng.random((n, d), dtype=np.float32)
+    if cum is not None:
+        rows = rng.integers(0, n, n // 10)
+        u[rows] = cum.numpy()[None, :, rng.integers(0, 3)]
+    return torch.from_numpy(u)
+
+
+def _pad_rows(x, tile):
+    return np.concatenate([x, np.zeros((-x.shape[0] % tile,) + x.shape[1:], x.dtype)])
+
+
+@pytest.mark.parametrize("n, d", [(1000, 3), (1537, 12), (512, 20)], ids=["ragged-d3", "ragged-d12", "tile-d20"])
+def test_quadrant_descent_plain_matches_pallas(ref, n, d):
+    """Against the Pallas kernel in interpret mode (the reference pads N to
+    its 512-row tile; the port takes N as it is) and kernels/ref.py."""
+    import jax.numpy as jnp
+    cum = kpgm._level_cumprobs(torch.from_numpy(_batch_thetas(d, d)))
+    u = _uniforms(n, d, n + d, cum)
+    padded = jnp.asarray(_pad_rows(u.numpy(), ref.qd.TILE))
+    want = ref.qd.quadrant_descent(padded, jnp.asarray(cum.numpy()), interpret=True)
+    oracle = ref.kref.quadrant_descent_ref(jnp.asarray(u.numpy()), jnp.asarray(cum.numpy()))
+    got = qd.quadrant_descent_plain(u, cum)
+    for w, o, g in zip(want, oracle, got):
+        assert g.dtype == torch.int32 and g.shape == (n,)
+        assert np.array_equal(np.asarray(w)[:n], g.numpy())
+        assert np.array_equal(np.asarray(o), g.numpy())
+
+
+def _lookup_case(d, n_nodes, rows, seed, width_one=False):
+    """Tables of a random attribute sample and per-row block ids; with
+    ``width_one`` every config is distinct, so B = 1."""
+    rng = np.random.default_rng(seed)
+    lam = rng.permutation(1 << d)[:n_nodes] if width_one else rng.integers(0, 1 << d, n_nodes)
+    part = partition.build_partition(lam)
+    tab = partition.padded_lookup_tables(part)
+    kb = rng.integers(0, part.B, rows).astype(np.int32)
+    lb = rng.integers(0, part.B, rows).astype(np.int32)
+    return part, tab, kb, lb
+
+
+@pytest.mark.parametrize(
+    "d, n_nodes, rows, width_one",
+    [(10, 300, 1000, False), (12, 1500, 1100, False), (6, 5, 700, True)],
+    ids=["misses-ragged", "ragged-d12", "B1-L8"],
+)
+def test_quilt_descent_lookup_plain_matches_pallas(ref, d, n_nodes, rows, width_one):
+    """Descent + lookup against the Pallas kernel (interpret mode), padded
+    as ops.quilt_descent_lookup_pallas pads, and against kernels/ref.py."""
+    import jax.numpy as jnp
+    part, tab, kb, lb = _lookup_case(d, n_nodes, rows, seed=d, width_one=width_one)
+    cum = kpgm._level_cumprobs(torch.from_numpy(_batch_thetas(d, d + 1)))
+    u = _uniforms(rows, d, rows, cum)
+    j = dict(cum=jnp.asarray(cum.numpy()), cfg=jnp.asarray(tab.configs), node=jnp.asarray(tab.nodes))
+    want = ref.ops.quilt_descent_lookup_pallas(
+        jnp.asarray(u.numpy()), j["cum"], jnp.asarray(kb), jnp.asarray(lb), j["cfg"], j["node"]
+    )
+    oracle = ref.kref.quilt_descent_lookup_ref(
+        jnp.asarray(u.numpy()), j["cum"], jnp.asarray(kb), jnp.asarray(lb), j["cfg"], j["node"]
+    )
+    got = qd.quilt_descent_lookup_plain(
+        u, cum, torch.from_numpy(kb), torch.from_numpy(lb),
+        torch.from_numpy(tab.configs), torch.from_numpy(tab.nodes),
+    )
+    for w, o, g in zip(want, oracle, got):
+        assert g.dtype == torch.int32 and g.shape == (rows,)
+        assert np.array_equal(np.asarray(w), g.numpy())
+        assert np.array_equal(np.asarray(o), g.numpy())
+    snode = got[2].numpy()
+    assert (snode >= 0).any() and ((snode < 0).any() or width_one)
+    # the host oracle: partition.lookup_nodes row by row
+    for b in range(part.B):
+        sel = kb == b
+        nodes = partition.lookup_nodes(part.sorted_configs[b], part.sorted_nodes[b], got[0].numpy()[sel])
+        assert np.array_equal(nodes, snode[sel])
+
+
+def test_quilt_descent_lookup_wide_rows(ref):
+    """A 41,432-wide block row (the n = 2^16 paper plan's width) against the
+    reference's oracle; rows outside [0, B) miss."""
+    import jax.numpy as jnp
+    d, width, rows = 16, 41_432, 4000
+    rng = np.random.default_rng(16)
+    cfg = np.sort(rng.choice(1 << d, width, replace=False)).astype(np.int32)[None, :]
+    node = rng.permutation(width).astype(np.int32)[None, :]
+    cum = kpgm._level_cumprobs(torch.from_numpy(_batch_thetas(d, 3)))
+    u = _uniforms(rows, d, 5)
+    kb = np.zeros(rows, np.int32)
+    want = ref.kref.quilt_descent_lookup_ref(
+        jnp.asarray(u.numpy()), jnp.asarray(cum.numpy()), jnp.asarray(kb), jnp.asarray(kb),
+        jnp.asarray(cfg), jnp.asarray(node),
+    )
+    got = qd.quilt_descent_lookup_plain(
+        u, cum, torch.from_numpy(kb), torch.from_numpy(kb), torch.from_numpy(cfg), torch.from_numpy(node)
+    )
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), g.numpy())
+    assert (got[2] >= 0).any() and (got[2] < 0).any()
+    outside = qd.quilt_descent_lookup_plain(
+        u[:5], cum, torch.full((5,), 1, dtype=torch.int32), torch.full((5,), -1, dtype=torch.int32),
+        torch.from_numpy(cfg), torch.from_numpy(node),
+    )
+    assert (outside[2] == -1).all() and (outside[3] == -1).all()
+
+
+def test_sample_edge_batch_matches_pallas_batch(ref):
+    """ops.sample_edge_batch against the reference's sample_edge_batch_pallas
+    (threefry draw padded to 512 rows, eager cum) at a ragged N; the CPU
+    wrapper counts no launch."""
+    import jax
+
+    th = _batch_thetas(9, 8)
+    key = jax.random.PRNGKey(31)
+    want = ref.ops.sample_edge_batch_pallas(key, jax.numpy.asarray(th), 1300)
+    before = ops.kernel_launches()["quadrant_descent"]
+    got = ops.sample_edge_batch(prng.PRNGKey(31), th, 1300, device="cpu")
+    assert ops.kernel_launches()["quadrant_descent"] == before
+    for w, g in zip(want, got):
+        assert torch.equal(torch.from_numpy(np.array(w)), g)
+
+
+@pytest.mark.parametrize("chunk_elems", [1, 7 * 11, 1 << 26], ids=["row", "ragged", "whole"])
+def test_chunked_draw_equals_whole_draw(ref, monkeypatch, chunk_elems):
+    """kpgm.descend_draw in row chunks (prng.uniform's offset) equals the
+    reference's one-shot sample_edge_batch; chunk offsets land mid-draw."""
+    import jax
+
+    monkeypatch.setattr(kpgm, "DRAW_CHUNK_ELEMS", chunk_elems)
+    th = _batch_thetas(11, 9)
+    want = ref.kpgm.sample_edge_batch(jax.random.PRNGKey(8), jax.numpy.asarray(th), 1300)
+    cum = kpgm._level_cumprobs(torch.from_numpy(th))
+    got = kpgm.descend_draw(prng.PRNGKey(8), cum, 1300)
+    for w, g in zip(want, got):
+        assert torch.equal(torch.from_numpy(np.array(w)), g)
+
+
+def test_uniform_offset_equals_slice_of_whole_draw(ref):
+    import jax
+
+    whole = np.asarray(jax.random.uniform(jax.random.PRNGKey(2), (300, 7)))
+    for row0, rows in ((0, 300), (37, 100), (299, 1)):
+        part = prng.uniform(prng.PRNGKey(2), (rows, 7), offset=row0 * 7)
+        assert np.array_equal(whole[row0 : row0 + rows], part.numpy())
+
+
+def test_uniforms_wrappers_run_plain_on_cpu_and_raise_elsewhere():
+    cum = kpgm._level_cumprobs(torch.from_numpy(_batch_thetas(5, 4)))
+    u = _uniforms(100, 5, 1)
+    part, tab, kb, lb = _lookup_case(5, 20, 100, seed=2)
+    tables = (torch.from_numpy(tab.configs), torch.from_numpy(tab.nodes))
+    before = ops.kernel_launches()
+    assert all(torch.equal(a, b) for a, b in zip(qd.quadrant_descent(u, cum), qd.quadrant_descent_plain(u, cum)))
+    got = qd.quilt_descent_lookup(u, cum, torch.from_numpy(kb), torch.from_numpy(lb), *tables)
+    want = qd.quilt_descent_lookup_plain(u, cum, torch.from_numpy(kb), torch.from_numpy(lb), *tables)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ops.kernel_launches() == before
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qd.quadrant_descent(u.to(meta), cum.to(meta))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qd.quilt_descent_lookup(u.to(meta), cum.to(meta), *(t.to(meta) for t in (
+            torch.from_numpy(kb), torch.from_numpy(lb), *tables)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d", [(1, 3), (100_003, 16), (1 << 20, 31), (3_355_443, 20)])
+def test_cuda_quadrant_descent_equals_plain(cuda_device, n, d):
+    """The kernel against its plain version; d = 20 at the KPGM host loop's
+    draw chunk (DRAW_CHUNK_ELEMS // 20 rows), where a 256-row tile ends
+    mid-row and load_tile carries a remainder."""
+    cum = kpgm._level_cumprobs(torch.from_numpy(_batch_thetas(d, d))).to(cuda_device)
+    u = _uniforms(n, d, d, cum.cpu()).to(cuda_device)
+    before = qd.DESCENT_LAUNCHES
+    got = qd.quadrant_descent(u, cum)
+    torch.cuda.synchronize()
+    assert qd.DESCENT_LAUNCHES == before + 1
+    want = qd.quadrant_descent_plain(u, cum)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes, d", [(300, 10), (30_000, 15)], ids=["smem", "global"])
+def test_cuda_quilt_descent_lookup_equals_plain(cuda_device, n_nodes, d):
+    part, tab, kb, lb = _lookup_case(d, n_nodes, 100_003, seed=d)
+    cum = kpgm._level_cumprobs(torch.from_numpy(_batch_thetas(d, 7))).to(cuda_device)
+    u = _uniforms(100_003, d, 3, cum.cpu()).to(cuda_device)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (kb, lb, tab.configs, tab.nodes)]
+    args[1][:7] = part.B  # rows outside the tables miss
+    before = qd.LOOKUP_LAUNCHES
+    got = qd.quilt_descent_lookup(u, cum, *args)
+    torch.cuda.synchronize()
+    assert qd.LOOKUP_LAUNCHES == before + 1
+    want = qd.quilt_descent_lookup_plain(u, cum, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (got[3][:7] == -1).all()
+    assert qd.descent_tables_in_shared_memory(d, args[2]) == (n_nodes == 300)
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_draw_equals_cpu(cuda_device):
+    th = torch.from_numpy(_batch_thetas(12, 2))
+    got = kpgm.sample_edge_batch(prng.PRNGKey(4), th, 300_001, device=cuda_device)
+    want = kpgm.sample_edge_batch(prng.PRNGKey(4), th, 300_001, device="cpu")
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))

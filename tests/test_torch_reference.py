@@ -36,6 +36,7 @@ _REF_MODULES = {
     "magm": "repro.core.magm",
     "partition": "repro.core.partition",
     "qd": "repro.kernels.quadrant_descent",
+    "kref": "repro.kernels.ref",
     "ml": "repro.kernels.magm_logprob",
     "bt": "repro.kernels.bernoulli_tile",
     "ops": "repro.kernels.ops",

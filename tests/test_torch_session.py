@@ -147,13 +147,11 @@ def test_default_device_raises_without_card(monkeypatch):
 @pytest.mark.parametrize(
     "change",
     [
-        {"backend": "host"},
         {"backend": "balldrop"},
         {"split": True},
         {"mesh": "auto"},
-        {"exact_cells": False},
     ],
-    ids=["host", "balldrop", "split", "mesh", "legacy-rounds"],
+    ids=["balldrop", "split", "mesh"],
 )
 def test_unported_session_paths_raise(change):
     p = interop.from_reference(
@@ -169,23 +167,39 @@ def test_unported_run_paths_raise():
     )[0]
     s = MAGMSampler(SamplerConfig(params=p, num_nodes=32, device="cpu"))
     key = prng.PRNGKey(0)
-    for kwargs in ({"num_samples": 2}, {"targets": np.ones(s.plan.num_graphs)}, {"mesh": object()}):
+    for kwargs in ({"num_samples": 2}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             quilt.quilt_run(key, s.plan, **kwargs)
+    for method in (s.sample_stream, s.sample_batch):
+        with pytest.raises(NotImplementedError, match="stream and batch"):
+            method()
 
 
-def test_budget_over_device_cap_raises():
-    """n = 2^16 at the paper's setting needs 80.6 M candidates: the legacy
-    ranked rounds, not ported yet."""
+def test_budget_over_device_cap_takes_host_path(monkeypatch):
+    """n = 2^16 at the paper's setting needs 80.6 M exact candidates, over
+    DEVICE_MAX_CANDIDATES: the exact round is refused, the ranked round is
+    over the cap too, and the run takes the host path (stubbed here: the
+    real one draws 83.9 M candidates, a chip-sized job; chip_smoke.py runs
+    it)."""
     from repro_torch.core import magm
 
     s = MAGMSampler(
         SamplerConfig(params=magm.make_params(magm_paper.THETA_1, 0.5, 16), num_nodes=1 << 16, device="cpu")
     )
+    calls = []
+
+    def host(key, plan, *, max_rounds, oversample):
+        calls.append((max_rounds, oversample))
+        stats = quilt.QuiltStats(plan.B, plan.num_graphs, 0, 0, 0, plan.n, None)
+        zeros = np.zeros(plan.num_graphs, np.int64)
+        return np.zeros((0, 2), np.int64), stats, zeros, zeros
+
+    monkeypatch.setattr(quilt, "_quilt_sample_host", host)
+    monkeypatch.setattr(quilt, "DISPATCH_COUNTERS", dict(quilt.DISPATCH_COUNTERS))  # restored after
     before = quilt.DISPATCH_COUNTERS["exact_fallbacks"]
-    with pytest.raises(NotImplementedError, match="DEVICE_MAX_CANDIDATES"):
-        s.sample(prng.PRNGKey(1))
+    gs = s.sample(prng.PRNGKey(1))
     assert quilt.DISPATCH_COUNTERS["exact_fallbacks"] == before + 1
+    assert calls == [(8, 1.05)] and gs.num_edges == 0 and gs.stats.B == s.plan.B == 8
 
 
 def test_interop_validates_shapes():
