@@ -1,23 +1,25 @@
 """repro_torch — the MAGM quilting sampler on PyTorch and CUDA.
 
 A port of :mod:`repro` (JAX, Pallas kernels for the TPU) that runs the
-default MAGM session on an NVIDIA GPU, with the fused counter-PRNG descent
-+ block lookup as a CUDA kernel (``csrc/quilt_prng_descent_lookup.cu``),
-and beside it the naive O(n^2) baseline (``core/naive.py``, kernel
-``csrc/bernoulli_tile.cu``), MAGFIT's dense scoring (``fit/magfit.py``,
-kernel ``csrc/magm_logprob.cu``) and the counter-PRNG KPGM edge batch
-(``kernels/ops.py``, kernel ``csrc/quadrant_descent_prng.cu``).
-It imports ``torch`` and never ``jax``; its results are held bit-identical
-to the JAX package's by the ``tests/test_torch_*.py`` suite.
+MAGM and KPGM sessions on an NVIDIA GPU, through the quilting engine
+(``core/quilt.py``) or the ball-dropping engine (``core/balldrop.py``),
+with every TPU kernel of the reference as a CUDA kernel under ``csrc/``;
+beside them the naive O(n^2) baseline (``core/naive.py``), MAGFIT's dense
+scoring (``fit/magfit.py``), the KPGM edge batches (``kernels/ops.py``)
+and the 3-sigma validation suite (``analysis/validate.py``).  It imports
+``torch`` and never ``jax``; its results are held bit-identical to the JAX
+package's (statistically, for the device-native Philox batch) by the
+``tests/test_torch_*.py`` suite.
 
 Layout mirrors the reference: ``core/`` (PRNG, MAGM/KPGM math, partition,
-dedup, the quilting engine, the naive sampler), ``kernels/`` (counter
-hashes, each kernel's wrapper and its plain PyTorch version), ``fit/``
-(dense scoring), ``api/`` (SamplerConfig, MAGMSampler, GraphSample) and
-``configs/`` (the paper's thetas).
+dedup, the Kronecker moments, the quilting and ball-dropping engines, the
+naive sampler, graph statistics), ``kernels/`` (counter hashes, Philox,
+each kernel's wrapper and its plain PyTorch version), ``fit/`` (dense
+scoring), ``api/`` (SamplerConfig, MAGMSampler, GraphSample),
+``analysis/`` (validation) and ``configs/`` (the paper's thetas).
 
 Device rule: every entry point runs on ``device="cuda"`` unless the caller
 asks for the CPU, and raises when no card is present.
 """
 
-__all__ = ["api", "core", "kernels", "fit", "configs", "interop"]
+__all__ = ["api", "core", "kernels", "fit", "configs", "analysis", "interop"]

@@ -29,8 +29,7 @@ class SamplerConfig:
     version.  ``device`` is where the session runs (default ``"cuda"``; a
     session raises when no card is present).  The other fields mean what
     they mean in the reference; the paths this port does not run yet
-    (``backend="balldrop"``, ``mesh``, ``split``) make the session raise
-    ``NotImplementedError``.
+    (``mesh``, ``split``) make the session raise ``NotImplementedError``.
     """
 
     params: Any

@@ -3,9 +3,10 @@ times.
 
 A session resolves a frozen :class:`SamplerConfig` into an owned
 :class:`repro_torch.core.quilt.QuiltPlan` on its device and a key stream.
-A MAGM sample runs the quilting engine (``quilt.quilt_run``); a KPGM
-sample runs it over the B = 1 identity plan, or Algorithm 1's host loop
-where no plan is built (``backend="host"``, d > 20).
+A MAGM sample runs the quilting engine (``quilt.quilt_run``), or with
+``backend="balldrop"`` the ball-dropping engine over the same plan; a KPGM
+sample runs the engine over the B = 1 identity plan, or Algorithm 1's host
+loop where no plan is built (``backend="host"``, d > 20).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ class _Session:
     """Shared session plumbing: config checks, device, key stream."""
 
     def __init__(self, config: SamplerConfig, key: Optional[torch.Tensor]):
-        reason = quilt.unported_reason(backend=config.backend, mesh=config.mesh, split=config.split)
+        reason = quilt.unported_reason(mesh=config.mesh, split=config.split)
         if reason is not None:
             raise NotImplementedError(f"{reason} is not ported yet")
         self.config = config
@@ -97,6 +98,12 @@ class MAGMSampler(_Session):
         self.plan: Optional[quilt.QuiltPlan] = None
         if self.F.size:
             self.plan = quilt.build_quilt_plan(self.F, params.thetas, device=self.device)
+        if config.backend == "balldrop" and self.plan is not None and self.plan.bd_cost is None:
+            # fail at session build, not on the first sample()
+            raise ValueError(
+                f"backend='balldrop' needs the plan's ball-dropping moments, unavailable at "
+                f"d={self.plan.d} (2^d exceeds kron.MOMENT_CAP); use backend='auto' or 'host'"
+            )
 
     def sample(self, key: Optional[torch.Tensor] = None) -> GraphSample:
         """Draw one MAGM graph; ``key=None`` consumes the session's stream."""
@@ -142,10 +149,10 @@ class KPGMSampler(_Session):
         self.plan: Optional[quilt.QuiltPlan] = None
         if config.backend != "host" and self.n <= KPGM_PLAN_MAX_NODES:
             self.plan = quilt.build_kpgm_plan(params.thetas, device=self.device)
-        elif config.backend == "device":
-            # an explicit device request must not quietly become the host loop
+        elif config.backend in ("device", "balldrop"):
+            # an explicit engine request must not quietly become the host loop
             raise ValueError(
-                f"backend='device' needs n <= {KPGM_PLAN_MAX_NODES} (got n={self.n}); "
+                f"backend={config.backend!r} needs n <= {KPGM_PLAN_MAX_NODES} (got n={self.n}); "
                 "use backend='auto' or 'host'"
             )
 
@@ -179,9 +186,9 @@ class KPGMSampler(_Session):
         if run is None:
             return self._host_sample(key, num_edges)
         edges = run.edges()
-        # no stats when the engine took its host path: its target draw was
-        # never used there
-        stats = None if run.host_edges is not None else KPGMStats(
+        # no stats when the quilting engine took its host path: its target
+        # draw was never used there (the ball-dropping host loop honors it)
+        stats = None if run.host_edges is not None and run.sampler != "balldrop" else KPGMStats(
             num_nodes=self.n, target_edges=int(run.targets[0]), sampled_edges=int(edges.shape[0])
         )
         return GraphSample(self._cast(edges), self.n, stats, key)

@@ -83,6 +83,16 @@ def padded_lookup_tables(part: Partition, min_width: int = 8) -> PaddedTables:
     return PaddedTables(configs=cfg, nodes=node, lengths=lengths)
 
 
+def dense_inverse(part: Partition, d: int) -> np.ndarray:
+    """(B, 2^d) int32 map config -> node id per block, -1 where absent: the
+    per-candidate block lookup as one gather.  O(B * 2^d) memory; callers
+    gate on the size (``quilt.DENSE_INV_CAP``)."""
+    inv = np.full((part.B, 1 << d), -1, dtype=np.int32)
+    for b in range(part.B):
+        inv[b, part.sorted_configs[b]] = part.sorted_nodes[b]
+    return inv
+
+
 def lookup_nodes(sorted_configs: np.ndarray, sorted_nodes: np.ndarray, configs: np.ndarray) -> np.ndarray:
     """Node ids of sampled configurations in one D_c, -1 where absent
     (host numpy; the kernels' lookup is checked against it)."""

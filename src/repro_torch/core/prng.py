@@ -4,7 +4,8 @@
 A key is a ``(2,)`` int64 tensor holding two uint32 words, the same words
 ``jax.random.key_data`` shows for the reference's key.  Only the subset the
 sampler uses is here: ``PRNGKey``, ``split``, ``fold_in``, ``key_data``,
-``bits`` (uint32 / uint64), ``uniform`` and ``normal`` (float32).
+``bits`` (uint32 / uint64), ``uniform`` and ``normal`` (float32) and
+``randint`` (int32).
 
 The partitionable counter of element i of a draw is its flat index i, so
 element i does not depend on the shape: ``offset=o`` draws the elements
@@ -182,3 +183,23 @@ def normal(key: Key, shape: Shape = (), *, device=None) -> torch.Tensor:
     (``f32math.erf_inv``), so the bits are equal on every device."""
     u = uniform(key, shape, minval=_NORMAL_LO, maxval=1.0, device=device)
     return _SQRT2 * f32math.erf_inv(u)
+
+
+def randint(key: Key, shape: Shape, minval: int, maxval: int, *, device=None) -> torch.Tensor:
+    """int32 integers in ``[minval, maxval)``, as ``jax.random.randint(key,
+    shape, minval, maxval, dtype=jnp.int32)``: two uint32 draws from the
+    halves of ``split(key)``, folded as ``(hi % span) * (2^32 % span) + lo %
+    span`` in wrapping uint32 arithmetic, then ``% span`` (a span of 1 when
+    ``maxval <= minval``).  Bounds must lie in the int32 range."""
+    lo, hi = int(minval), int(maxval)
+    if not (-(1 << 31) <= lo < (1 << 31) and -(1 << 31) <= hi < (1 << 31)):
+        raise ValueError(f"bounds must lie in the int32 range, got [{lo}, {hi})")
+    k1, k2 = split(key)
+    higher = bits(k1, shape, device=device)
+    lower = bits(k2, shape, device=device)
+    span = (hi - lo) & M32 if hi > lo else 1
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & M32) % span
+    # the int64 product wraps mod 2^64, so its low 32 bits are the uint32 product's
+    off = (((higher % span) * mult) & M32) + lower % span
+    return (lo + (off & M32) % span).to(torch.int32)

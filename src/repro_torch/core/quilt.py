@@ -28,8 +28,10 @@ kernel ``quilt_prng_descent_lookup`` on a card), the acceptance thinning in
 the exact mode (:func:`_exact_cell_valid`), and the sort-based segmented
 dedup (``core/dedup.py``).  A host round descends threefry uniforms and
 looks them up in the kernel ``quilt_descent_lookup``, then dedupes on the
-host in arrival order.  Ball dropping, the section-5 split, meshes and
-fused batches raise ``NotImplementedError`` naming their ROADMAP item.
+host in arrival order.  ``backend="balldrop"`` goes to the ball-dropping
+engine (``core/balldrop.py``) over the same plan.  The section-5 split,
+meshes and fused quilting batches raise ``NotImplementedError`` naming
+their ROADMAP item.
 
 :func:`naive_reference_sample` is the O(n^2) exact oracle the quilting
 sampler is tested against.
@@ -46,7 +48,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import dedup, f32math, kpgm, magm, partition, prng
+from repro_torch.core import dedup, f32math, kpgm, kron, magm, partition, prng
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops
 
@@ -61,10 +63,17 @@ class QuiltStats(NamedTuple):
     bprime: Optional[int]
 
 
+# a dense config -> node inverse above this many entries would dominate
+# memory; larger plans look up through the sorted tables
+DENSE_INV_CAP = 1 << 24
+
+
 class QuiltPlan(NamedTuple):
     """Device state for quilting one attribute matrix: the Theorem-2
-    partition, the padded per-block lookup tables, the level cumulative
-    probabilities and the |E| moments.  Built by :func:`build_quilt_plan`."""
+    partition, the padded per-block lookup tables (and, within
+    ``DENSE_INV_CAP``, the dense and by-config inverses), the level
+    cumulative probabilities and the |E| moments.  Built by
+    :func:`build_quilt_plan`."""
 
     n: int
     d: int
@@ -78,6 +87,18 @@ class QuiltPlan(NamedTuple):
     std_edges: float  # sqrt(m - v)
     p_max: float  # largest single-cell probability prod_k max(theta^(k))
     device: torch.device
+    inv: Optional[torch.Tensor] = None  # (B, 2^d) int32 dense inverse, on device
+    # |E| moments given the attributes (c^T P c forms, core/kron.py) and the
+    # ball-dropping proposals per edge; None past kron.MOMENT_CAP, where
+    # backend="balldrop" is unavailable
+    bd_mean: Optional[float] = None
+    bd_std: Optional[float] = None
+    bd_cost: Optional[float] = None
+    # nodes grouped by configuration in node order: cfg_nodes[cfg_offset[x]
+    # + b] is the node of dense_inverse[b, x], in O(2^d + n) memory
+    cfg_offset: Optional[torch.Tensor] = None  # (2^d,) int32 exclusive prefix
+    cfg_count: Optional[torch.Tensor] = None  # (2^d,) int32 multiplicities
+    cfg_nodes: Optional[torch.Tensor] = None  # (n,) int32 grouped node ids
 
     @property
     def num_graphs(self) -> int:
@@ -126,12 +147,24 @@ def _digest(a: np.ndarray):
 
 
 def _partition_state(F: np.ndarray):
-    """Partition + padded lookup tables (host numpy) of one attribute matrix."""
+    """Partition, padded lookup tables and the dense and by-config inverses
+    (host numpy, each None where its size gate fails) of one attribute
+    matrix."""
+    d = int(F.shape[1])
     lam = magm.configs_from_attributes(torch.from_numpy(np.array(F))).numpy()
     part = partition.build_partition(lam)
     PLAN_STATS["partition_builds"] += 1
     tables = partition.padded_lookup_tables(part) if part.B else None
-    return part, tables
+    inv = partition.dense_inverse(part, d) if part.B and part.B * (1 << d) <= DENSE_INV_CAP else None
+    bycfg = None
+    if part.B and 2 * (1 << d) <= DENSE_INV_CAP:
+        # a stable sort groups nodes by config in node order, the Theorem-2
+        # occurrence-rank order: entry b of config x's group is block b's node
+        count = np.bincount(lam, minlength=1 << d).astype(np.int32)
+        offset = np.zeros(1 << d, dtype=np.int32)
+        offset[1:] = np.cumsum(count[:-1])
+        bycfg = (offset, count, np.argsort(lam, kind="stable").astype(np.int32))
+    return part, tables, inv, bycfg
 
 
 def _plan_constants(thetas: torch.Tensor):
@@ -143,12 +176,18 @@ def _plan_constants(thetas: torch.Tensor):
 
 def _assemble_plan(F_shape, th: torch.Tensor, state, dev: torch.device) -> QuiltPlan:
     """A QuiltPlan from a partition state and the thetas, on ``dev``."""
-    part, tables = state
+    part, tables, inv, bycfg = state
+    n, d = int(F_shape[0]), int(F_shape[1])
     cum, m, std, p_max = _plan_constants(th)
+    bd_mean = bd_std = bd_cost = None
+    if part.B and (1 << d) <= kron.MOMENT_CAP:
+        bd_mean, bd_std = kron.edge_count_moments(kron.config_multiplicities(part, d), th.numpy())
+        bd_cost = kron.balldrop_cost_factor(float(m), part.B, bd_mean)
     empty = torch.zeros((0, 8), dtype=torch.int32)
+    offset, count, nodes = (torch.from_numpy(a).to(dev) for a in bycfg) if bycfg else (None,) * 3
     plan = QuiltPlan(
-        n=int(F_shape[0]),
-        d=int(F_shape[1]),
+        n=n,
+        d=d,
         B=part.B,
         part=part,
         thetas=th.to(dev),
@@ -159,6 +198,13 @@ def _assemble_plan(F_shape, th: torch.Tensor, state, dev: torch.device) -> Quilt
         std_edges=float(std),
         p_max=float(p_max),
         device=dev,
+        inv=None if inv is None else torch.from_numpy(inv).to(dev),
+        bd_mean=bd_mean,
+        bd_std=bd_std,
+        bd_cost=bd_cost,
+        cfg_offset=offset,
+        cfg_count=count,
+        cfg_nodes=nodes,
     )
     PLAN_STATS["plan_builds"] += 1
     return plan
@@ -265,14 +311,20 @@ def accept_salt(rkey: torch.Tensor, device) -> torch.Tensor:
 
 
 def _exact_alpha(
-    scfg: torch.Tensor, dcfg: torch.Tensor, thetas: torch.Tensor, budget: int
+    scfg: torch.Tensor, dcfg: torch.Tensor, thetas: torch.Tensor, budget: int, log_extra: float = 0.0
 ) -> torch.Tensor:
     """float32 acceptance alpha = min(p / q, 1) of each candidate's cell,
-    with q = 1 - (1 - p / S)^G its occupancy after ``budget`` proposals.
-    The transcendentals are the reference's (core/f32math.py), so alpha is
-    bit-identical to it on every device."""
+    with q = 1 - (1 - pi)^G its occupancy after ``budget`` proposals and
+    pi = p / S / exp(``log_extra``).  The transcendentals are the
+    reference's (core/f32math.py), so alpha is bit-identical to it on every
+    device.  ``log_extra`` (ball dropping's 2 log B) is rounded to float32
+    and subtracted as a second float32 op, as the reference's weakly typed
+    constant is."""
     logp = kpgm.log_prob_pairs(thetas, scfg, dcfg)
-    pi = f32math.exp(logp - kpgm.log_level_sum(thetas))
+    logpi = logp - kpgm.log_level_sum(thetas)
+    if log_extra:
+        logpi = logpi - torch.tensor(log_extra, dtype=torch.float32, device=logp.device)
+    pi = f32math.exp(logpi)
     g = torch.tensor(float(budget), dtype=torch.float32, device=logp.device)
     q = -f32math.expm1(g * f32math.log1p(-pi))
     return torch.clamp_max(f32math.exp(logp - f32math.log(q)), 1.0)
@@ -285,12 +337,17 @@ def _exact_cell_valid(
     dcfg: torch.Tensor,
     thetas: torch.Tensor,
     budget: int,
+    log_extra: float = 0.0,
+    cell: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-candidate accept mask making cell inclusion exactly Bernoulli(p):
-    the cell survives when its shared hash uniform is below alpha."""
-    d = thetas.shape[0]
-    cell = scfg.to(torch.int64) * (1 << d) + dcfg.to(torch.int64)
-    return _accept_u01(salt, gid, cell) < _exact_alpha(scfg, dcfg, thetas, budget)
+    the cell survives when its shared hash uniform is below alpha.  The
+    hash unit is the config cell, or ``cell`` where given (ball dropping
+    passes the packed node pair: node pairs that share a config pair draw
+    independent accept bits)."""
+    if cell is None:
+        cell = scfg.to(torch.int64) * (1 << thetas.shape[0]) + dcfg.to(torch.int64)
+    return _accept_u01(salt, gid, cell) < _exact_alpha(scfg, dcfg, thetas, budget, log_extra)
 
 
 def _round_body(
@@ -349,25 +406,36 @@ class DeviceBatchUnavailable(RuntimeError):
 
 
 class QuiltRun(NamedTuple):
-    """One executed quilting run.
+    """One executed run of the engine.
 
     A device run holds the last round's fixed-shape buffers on the device
     (``snode``, ``dnode``, ``keep``) plus ``tail``, the ``(graph, (E, 2))``
     pieces of the host top-up appended after them in arrival order; a host
-    run holds ``host_edges`` and ``host_stats`` instead."""
+    run holds ``host_edges`` and ``host_stats`` instead.  ``sampler`` says
+    which engine made the run: ``"quilt"`` (B^2 block-pair graphs per
+    sample) or ``"balldrop"`` (one node-pair stream per sample,
+    ``core/balldrop.py``); the per-sample splits and stats key off it."""
 
     plan: QuiltPlan
-    # (B^2,) per-graph targets (the realized counts when exact; on a host
-    # run the targets the host path drew) and distinct cells taken
+    # per-graph targets (the realized counts when exact; on a host run the
+    # targets the host path drew) and distinct cells taken
     targets: np.ndarray
     counts: np.ndarray
-    snode: Optional[torch.Tensor]  # (B^2 * slots,) candidate node ids, on device
+    snode: Optional[torch.Tensor]  # (graphs * slots,) candidate node ids, on device
     dnode: Optional[torch.Tensor]
     keep: Optional[torch.Tensor]  # bool: taken AND both lookups hit, on device
     slots_per_graph: int
     tail: Tuple[Tuple[int, np.ndarray], ...]
     host_edges: Optional[np.ndarray]
     host_stats: Optional[QuiltStats]
+    num_samples: int = 1
+    sampler: str = "quilt"
+
+    @property
+    def graphs_per_sample(self) -> int:
+        """Dedup graphs one sample spans: B^2 block pairs, or one node-pair
+        stream for ball dropping."""
+        return 1 if self.sampler == "balldrop" else self.plan.num_graphs
 
     def kept_edges(self) -> int:
         if self.host_edges is not None:
@@ -375,27 +443,55 @@ class QuiltRun(NamedTuple):
         kept = int(self.keep.sum()) if self.keep is not None else 0
         return kept + sum(int(p.shape[0]) for _, p in self.tail)
 
+    def _device_pairs(self) -> np.ndarray:
+        pairs = torch.stack([self.snode[self.keep], self.dnode[self.keep]], dim=1)
+        return pairs.to(torch.int64).cpu().numpy()
+
     def edges(self) -> np.ndarray:
         """(E, 2) int64 host array: the device edges in candidate order,
-        then the tail pieces."""
+        then the tail pieces (sample-major for several samples)."""
         if self.host_edges is not None:
             return self.host_edges
+        if self.num_samples != 1 and self.tail:
+            # tail pieces land after every device edge; the split puts each
+            # sample's back with its own
+            return np.concatenate(self.edges_per_sample(), axis=0)
         pieces: List[np.ndarray] = []
         if self.keep is not None:
-            pairs = torch.stack([self.snode[self.keep], self.dnode[self.keep]], dim=1)
-            pieces.append(pairs.to(torch.int64).cpu().numpy())
+            pieces.append(self._device_pairs())
         pieces.extend(p for _, p in self.tail)
         pieces = [p for p in pieces if p.size]
         if not pieces:
             return np.zeros((0, 2), dtype=np.int64)
         return np.concatenate(pieces, axis=0)
 
+    def edges_per_sample(self) -> List[np.ndarray]:
+        """The kept edges split into per-sample (E_s, 2) arrays (candidates
+        are sample-major, so each sample's device edges are contiguous)."""
+        if self.host_edges is not None:
+            return [self.host_edges]
+        G, S = self.graphs_per_sample, self.num_samples
+        per: List[List[np.ndarray]] = [[] for _ in range(S)]
+        if self.keep is not None:
+            idx = torch.nonzero(self.keep).reshape(-1).cpu().numpy()
+            samp = (idx // max(self.slots_per_graph, 1)) // G
+            bounds = np.searchsorted(samp, np.arange(1, S))
+            for s, piece in enumerate(np.split(self._device_pairs(), bounds)):
+                per[s].append(piece)
+        for g, piece in self.tail:
+            per[g // G].append(piece)
+        return [
+            np.concatenate(p, axis=0) if sum(x.size for x in p) else np.zeros((0, 2), dtype=np.int64)
+            for p in per
+        ]
+
     def stats(self, kept: Optional[int] = None) -> QuiltStats:
         if self.host_stats is not None:
             return self.host_stats
         return QuiltStats(
             B=self.plan.B,
-            num_kpgm_draws=self.plan.num_graphs,
+            # ball dropping never draws whole KPGM graphs
+            num_kpgm_draws=0 if self.sampler == "balldrop" else self.plan.num_graphs,
             kpgm_edges_total=int(self.counts.sum()),
             kept_edges=self.kept_edges() if kept is None else int(kept),
             heavy_groups=0,
@@ -403,14 +499,26 @@ class QuiltRun(NamedTuple):
             bprime=None,
         )
 
+    def stats_per_sample(self, kept_sizes: List[int]) -> List[QuiltStats]:
+        G = self.graphs_per_sample
+        csum = self.counts.reshape(self.num_samples, G).sum(axis=1)
+        return [
+            QuiltStats(
+                B=self.plan.B,
+                num_kpgm_draws=0 if self.sampler == "balldrop" else G,
+                kpgm_edges_total=int(csum[s]),
+                kept_edges=int(kept_sizes[s]),
+                heavy_groups=0,
+                light_nodes=self.plan.n,
+                bprime=None,
+            )
+            for s in range(self.num_samples)
+        ]
 
-def unported_reason(
-    *, backend: str = "auto", mesh=None, split: bool = False, num_samples: int = 1
-) -> Optional[str]:
+
+def unported_reason(*, mesh=None, split: bool = False, num_samples: int = 1) -> Optional[str]:
     """Which requested path the port does not run yet, and the ROADMAP
     queue-1 item that will port it; None for a path it runs."""
-    if backend == "balldrop":
-        return "backend='balldrop' (ROADMAP queue 1: ball dropping)"
     if split:
         return "split=True (ROADMAP queue 1: the section-5 split)"
     if mesh is not None:
@@ -451,8 +559,19 @@ def quilt_run(
     :class:`DeviceBatchUnavailable` there.  ``use_kernel`` None or True runs
     the device rounds' lookup through its kernel wrapper, False through its
     plain version.
+
+    ``backend="balldrop"`` runs the ball-dropping engine over the same plan
+    (:func:`repro_torch.core.balldrop.balldrop_run`): one node-pair stream
+    per sample, ``targets`` per sample, ``num_samples >= 1``.
     """
-    reason = unported_reason(backend=backend, mesh=mesh, num_samples=num_samples)
+    if backend == "balldrop":
+        from repro_torch.core import balldrop  # balldrop imports this module
+
+        return balldrop.balldrop_run(
+            key, plan, num_samples=num_samples, targets=targets, max_rounds=max_rounds,
+            oversample=oversample, use_kernel=use_kernel, mesh=mesh, exact_cells=exact_cells,
+        )
+    reason = unported_reason(mesh=mesh, num_samples=num_samples)
     if reason is not None:
         raise NotImplementedError(f"{reason} is not ported yet")
     gtot = plan.num_graphs

@@ -19,6 +19,11 @@ from repro_torch.kernels import bernoulli_tile as _bt
 from repro_torch.kernels import magm_logprob as _ml
 from repro_torch.kernels import quadrant_descent as _qd
 
+# the reference's opt-in for its hardware-PRNG kernel variant; here it
+# selects the device-native Philox descent (quadrant_descent_native) for
+# sample_edge_batch_prng(tpu_native=None)
+TPU_NATIVE_PRNG = False
+
 PRNG_CHANNELS = _qd.PRNG_CHANNELS
 counter_seed = _qd.counter_seed
 counter_hash = _qd.counter_hash
@@ -46,6 +51,7 @@ def kernel_launches() -> dict:
         "bernoulli_tile": _bt.LAUNCHES,
         "quadrant_descent": _qd.DESCENT_LAUNCHES,
         "quilt_descent_lookup": _qd.LOOKUP_LAUNCHES,
+        "quadrant_descent_native": _qd.NATIVE_LAUNCHES,
     }
 
 
@@ -57,6 +63,7 @@ def reset_kernel_launches() -> None:
     _bt.LAUNCHES = 0
     _qd.DESCENT_LAUNCHES = 0
     _qd.LOOKUP_LAUNCHES = 0
+    _qd.NATIVE_LAUNCHES = 0
 
 
 def _batch_cumprobs(thetas) -> torch.Tensor:
@@ -82,12 +89,19 @@ def sample_edge_batch_prng(
     int32 ``(src, dst)`` on ``device`` (default ``"cuda"``; raises without a
     card), equal to the reference's for the same key.  Slot s draws from
     channel words s * 64 + k of graph 0, so a longer batch extends a shorter
-    one.  ``tpu_native=True`` raises ``NotImplementedError``."""
+    one.
+
+    ``tpu_native`` keeps the reference's name (None follows
+    ``TPU_NATIVE_PRNG``).  There it runs the TPU's hardware PRNG; on the
+    H100, which has none, True runs the device-native variant: the kernel
+    ``quadrant_descent_native`` draws each slot's uniforms from an in-kernel
+    Philox4x32-10 stream keyed by the same seed words.  Its bits are neither
+    the TPU's nor the counter hash's; its law is the same (the 3-sigma
+    suite), and a shorter batch is still a prefix of a longer one."""
     dev = resolve_device(device)
     cum = _batch_cumprobs(thetas).to(dev)
-    return _qd.quadrant_descent_prng(
-        counter_seed(key), cum, num_slots=int(num_edges), tpu_native=bool(tpu_native)
-    )
+    native = TPU_NATIVE_PRNG if tpu_native is None else bool(tpu_native)
+    return _qd.quadrant_descent_prng(counter_seed(key), cum, num_slots=int(num_edges), tpu_native=native)
 
 
 def sample_edge_batch(key: torch.Tensor, thetas, num_edges: int, *, device=None) -> Tuple[torch.Tensor, torch.Tensor]:

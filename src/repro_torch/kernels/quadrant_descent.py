@@ -15,7 +15,11 @@ with ``& 0xFFFFFFFF`` masks, which PyTorch supports on every device.
 version :func:`quilt_prng_descent_lookup_plain` on a CPU tensor.
 :func:`quadrant_descent_prng` (``csrc/quadrant_descent_prng.cu``, plain
 version :func:`quadrant_descent_prng_plain`) is the plain KPGM descent of
-a batch of slots of graph 0, with no lookup.
+a batch of slots of graph 0, with no lookup.  Its ``tpu_native=True``
+variant, :func:`quadrant_descent_native` (``csrc/quadrant_descent_native.cu``,
+plain version :func:`quadrant_descent_native_plain`), draws the uniforms
+from a Philox4x32-10 stream (:func:`philox4x32`) in place of the TPU's
+hardware PRNG.
 
 The two older kernels read their uniforms from an ``(N, d)`` float32
 operand instead (the threefry draws of the ranked host rounds):
@@ -184,16 +188,19 @@ def quilt_prng_descent_lookup_plain(
 # launches of each CUDA kernel since import (or since a caller reset it);
 # only the CUDA branch of quilt_prng_descent_lookup adds to LAUNCHES, only
 # that of quadrant_descent_prng to PRNG_LAUNCHES, of quadrant_descent to
-# DESCENT_LAUNCHES and of quilt_descent_lookup to LOOKUP_LAUNCHES
+# DESCENT_LAUNCHES, of quilt_descent_lookup to LOOKUP_LAUNCHES and of
+# quadrant_descent_native to NATIVE_LAUNCHES
 LAUNCHES = 0
 PRNG_LAUNCHES = 0
 DESCENT_LAUNCHES = 0
 LOOKUP_LAUNCHES = 0
+NATIVE_LAUNCHES = 0
 
 _LIB = None
 _PRNG_LIB = None
 _DESCENT_LIB = None
 _LOOKUP_LIB = None
+_NATIVE_LIB = None
 
 
 def _library():
@@ -307,13 +314,6 @@ def quilt_prng_descent_lookup(
     return tuple(outs)
 
 
-_TPU_NATIVE = (
-    "tpu_native=True (the TPU's hardware PRNG, _prng_native_kernel) is not "
-    "ported yet (ROADMAP queue 2: an in-kernel Philox variant held to the "
-    "3-sigma suite)"
-)
-
-
 def quadrant_descent_prng_plain(
     seed: Seed, cum: torch.Tensor, *, num_slots: int, chunk: int = 1 << 20
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -359,20 +359,21 @@ def quadrant_descent_prng(
 
     On a CUDA tensor this launches the CUDA kernel on the current stream and
     raises if the launch fails; on a CPU tensor it is the plain version.
-    ``tpu_native=True`` raises ``NotImplementedError``.
+    ``tpu_native=True`` keeps the reference's name for its hardware-PRNG
+    variant; on the H100 it selects :func:`quadrant_descent_native`, the
+    descent on an in-kernel Philox4x32-10 stream, whose bits differ from the
+    counter hash's (its law is held by the 3-sigma suite).
     """
     global PRNG_LAUNCHES
     if tpu_native:
-        raise NotImplementedError(_TPU_NATIVE)
+        return quadrant_descent_native(seed, cum, num_slots=num_slots)
     dev = cum.device
     if dev.type == "cpu":
         return quadrant_descent_prng_plain(seed, cum, num_slots=num_slots)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     _check_cum(cum)
-    n = int(num_slots)
-    if not 0 <= n < 2**31:
-        raise ValueError(f"num_slots must lie in [0, 2^31), got {n}")
+    n = _check_slots(num_slots)
     src = torch.empty(n, dtype=torch.int32, device=dev)
     dst = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
@@ -387,6 +388,122 @@ def quadrant_descent_prng(
         msg = lib.qkg_error_string(rc).decode()
         raise RuntimeError(f"quadrant_descent_prng launch failed: {msg} ({rc})")
     PRNG_LAUNCHES += 1
+    return src, dst
+
+
+def _check_slots(num_slots: int) -> int:
+    n = int(num_slots)
+    if not 0 <= n < 2**31:
+        raise ValueError(f"num_slots must lie in [0, 2^31), got {n}")
+    return n
+
+
+# --- the device-native variant: Philox4x32-10 in place of the TPU's PRNG ---
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) uint32 halves of the 64-bit product of the constant ``a`` and
+    the uint32 values ``b`` (in int64), from two products of a 16-bit half of
+    ``a`` with ``b``, so no int64 intermediate overflows."""
+    t = (a & 0xFFFF) * b
+    mid = (a >> 16) * b + (t >> 16)
+    return mid >> 16, ((mid & 0xFFFF) << 16) | (t & 0xFFFF)
+
+
+def philox4x32(ctr, key) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 of four uint32 counter words and two key words (each a
+    tensor or int, uint32 values in int64; they broadcast): the four output
+    words.  Equal to Random123's philox4x32 with 10 rounds and to the CUDA
+    kernel's ``csrc/philox.cuh``."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
+    k0, k1 = (torch.as_tensor(k, dtype=torch.int64, device=c0.device) for k in key)
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & M32, (k1 + _PHILOX_W[1]) & M32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def native_uniforms(seed: Seed, slot: torch.Tensor, d: int) -> torch.Tensor:
+    """(N, d) float32 uniforms of the device-native stream: slot s calls
+    Philox with key ``seed`` and counter (s, j, 0, 0) for j < ceil(d / 4),
+    level k takes word k % 4 of call k // 4, u = (bits >> 8) * 2^-24."""
+    slot = slot.to(torch.int64)
+    zero = torch.zeros_like(slot)
+    words = []
+    for j in range(-(-d // 4)):
+        words.extend(philox4x32((slot, zero + j, zero, zero), seed))
+    bits = torch.stack(words[:d], dim=1)
+    return (bits >> 8).to(torch.float32) * _TWO_M24
+
+
+def quadrant_descent_native_plain(
+    seed: Seed, cum: torch.Tensor, *, num_slots: int, chunk: int = 1 << 20
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The native kernel's function in plain PyTorch, on ``cum``'s device:
+    the descent of :func:`native_uniforms` for slots 0 .. num_slots - 1,
+    ``chunk`` slots at a time.  Returns int32 ``(src, dst)``."""
+    dev = cum.device
+    num_slots = int(num_slots)
+    src = torch.empty(num_slots, dtype=torch.int32, device=dev)
+    dst = torch.empty(num_slots, dtype=torch.int32, device=dev)
+    for a in range(0, num_slots, chunk):
+        slot = torch.arange(a, min(a + chunk, num_slots), dtype=torch.int64, device=dev)
+        src[a : a + slot.numel()], dst[a : a + slot.numel()] = _descend_body(
+            native_uniforms(seed, slot, cum.shape[0]), cum
+        )
+    return src, dst
+
+
+def _native_library():
+    """The built kernel library of quadrant_descent_native."""
+    global _NATIVE_LIB
+    if _NATIVE_LIB is None:
+        lib = _build.load("quadrant_descent_native")
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        lib.qkg_quadrant_descent_native.argtypes = [i, u, u, p, i, i, p, p, p]
+        lib.qkg_quadrant_descent_native.restype = i
+        lib.qkg_error_string.argtypes = [i]
+        lib.qkg_error_string.restype = ctypes.c_char_p
+        _NATIVE_LIB = lib
+    return _NATIVE_LIB
+
+
+def quadrant_descent_native(
+    seed: Seed, cum: torch.Tensor, *, num_slots: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quadrant descent of ``num_slots`` candidates on the device-native
+    Philox stream: int32 ``(src, dst)`` configs.
+
+    On a CUDA tensor this launches ``csrc/quadrant_descent_native.cu`` on the
+    current stream and raises if the launch fails; on a CPU tensor it is
+    :func:`quadrant_descent_native_plain`.
+    """
+    global NATIVE_LAUNCHES
+    dev = cum.device
+    if dev.type == "cpu":
+        return quadrant_descent_native_plain(seed, cum, num_slots=num_slots)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    _check_cum(cum)
+    n = _check_slots(num_slots)
+    src = torch.empty(n, dtype=torch.int32, device=dev)
+    dst = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return src, dst
+    lib = _native_library()
+    rc = lib.qkg_quadrant_descent_native(
+        _build.device_index(dev),
+        seed[0] & M32, seed[1] & M32, cum.data_ptr(), cum.shape[0], n,
+        src.data_ptr(), dst.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "quadrant_descent_native")
+    NATIVE_LAUNCHES += 1
     return src, dst
 
 

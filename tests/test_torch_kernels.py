@@ -11,6 +11,7 @@ import torch
 
 from test_torch_reference import cuda_device, ref  # noqa: F401  (fixtures)
 
+from repro_torch.configs import magm_paper
 from repro_torch.core import kpgm, partition, prng
 from repro_torch.kernels import ops
 from repro_torch.kernels import quadrant_descent as qd
@@ -228,23 +229,112 @@ def test_sample_edge_batch_prng_matches_reference(ref, num_edges):
 
 
 def test_quadrant_descent_prng_native_raises_and_cpu_counts_no_launch():
+    """tpu_native=True runs the Philox variant: its plain version on a CPU
+    tensor, with no launch counted; on other devices, and on the default
+    device without a card, it raises."""
     cum = ops._batch_cumprobs(_batch_thetas(4, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        ops.sample_edge_batch_prng(prng.PRNGKey(0), _batch_thetas(4, 2), 64, tpu_native=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="tpu_native"):
-        qd.quadrant_descent_prng(SEED, cum, num_slots=64, tpu_native=True)
-    before = ops.kernel_launches()["quadrant_descent_prng"]
-    got = qd.quadrant_descent_prng(SEED, cum, num_slots=777)
-    want = qd.quadrant_descent_prng_plain(SEED, cum, num_slots=777)
+    key = prng.PRNGKey(0)
+    got = ops.sample_edge_batch_prng(key, _batch_thetas(4, 2), 64, tpu_native=True, device="cpu")
+    want = qd.quadrant_descent_native_plain(ops.counter_seed(key), cum, num_slots=64)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert ops.kernel_launches()["quadrant_descent_prng"] == before
-    with pytest.raises(ValueError, match="no kernel for device"):
-        qd.quadrant_descent_prng(SEED, cum.to("meta"), num_slots=8)
-    if torch.cuda.is_available():
-        assert ops.sample_edge_batch_prng(prng.PRNGKey(0), _batch_thetas(4, 2), 8)[0].is_cuda
-    else:
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            ops.sample_edge_batch_prng(prng.PRNGKey(0), _batch_thetas(4, 2), 8)
+    before = dict(ops.kernel_launches())
+    for tpu_native in (False, True):
+        got = qd.quadrant_descent_prng(SEED, cum, num_slots=777, tpu_native=tpu_native)
+        plain = qd.quadrant_descent_native_plain if tpu_native else qd.quadrant_descent_prng_plain
+        want = plain(SEED, cum, num_slots=777)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ops.kernel_launches() == before
+    for tpu_native in (False, True):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            qd.quadrant_descent_prng(SEED, cum.to("meta"), num_slots=8, tpu_native=tpu_native)
+    for tpu_native in (None, True):
+        if torch.cuda.is_available():
+            assert ops.sample_edge_batch_prng(key, _batch_thetas(4, 2), 8, tpu_native=tpu_native)[0].is_cuda
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                ops.sample_edge_batch_prng(key, _batch_thetas(4, 2), 8, tpu_native=tpu_native)
+
+
+# --- the device-native variant: Philox4x32-10 in place of the TPU's PRNG ---
+
+
+@pytest.mark.parametrize(
+    "ctr, key, want",
+    [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+        (
+            (0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+            (0xA4093822, 0x299F31D0),
+            (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1),
+        ),
+    ],
+    ids=["zeros", "ones", "pi"],
+)
+def test_philox_known_answers(ctr, key, want):
+    """Random123's known-answer vectors for philox4x32-10."""
+    assert tuple(int(w) for w in qd.philox4x32(ctr, key)) == want
+
+
+def test_philox_vectorised_equals_scalar():
+    rng = np.random.default_rng(3)
+    ctr = rng.integers(0, 1 << 32, (4, 50), dtype=np.int64)
+    key = tuple(int(k) for k in rng.integers(0, 1 << 32, 2))
+    got = qd.philox4x32(tuple(torch.from_numpy(c) for c in ctr), key)
+    for i in range(50):
+        one = qd.philox4x32(tuple(int(c[i]) for c in ctr), key)
+        assert [int(g[i]) for g in got] == [int(o) for o in one]
+
+
+@pytest.mark.parametrize("d", [1, 4, 7, 31])
+def test_native_plain_uniforms_and_prefix(d):
+    """Level k of slot s is word k % 4 of Philox((s, k // 4, 0, 0), seed),
+    u = (bits >> 8) 2^-24; a shorter batch is a prefix of a longer one."""
+    cum = ops._batch_cumprobs(_batch_thetas(d, d))
+    slot = torch.arange(300, dtype=torch.int64)
+    u = qd.native_uniforms(SEED, slot, d)
+    for k in (0, d // 2, d - 1):
+        words = qd.philox4x32((slot, torch.full_like(slot, k // 4), 0 * slot, 0 * slot), SEED)
+        assert torch.equal(u[:, k], (words[k % 4] >> 8).to(torch.float32) * 2.0**-24)
+    short = qd.quadrant_descent_native_plain(SEED, cum, num_slots=1000, chunk=333)
+    long = qd.quadrant_descent_native_plain(SEED, cum, num_slots=5000)
+    assert all(torch.equal(a, b[:1000]) for a, b in zip(short, long))
+    assert all(torch.equal(a, b) for a, b in zip(qd._descend_body(u, cum), (x[:300] for x in long)))
+
+
+def _cell_law(src, dst, thetas):
+    """(per-level quadrant fractions, their expected values, chi-square
+    p-value over the 4^d cells, max |z| of a cell) of a batch against
+    P_xy / m."""
+    from scipy import stats
+
+    d = thetas.shape[0]
+    src, dst = src.cpu().numpy().astype(np.int64), dst.cpu().numpy().astype(np.int64)
+    bits = np.arange(d - 1, -1, -1)
+    quad = ((src[:, None] >> bits) & 1) * 2 + ((dst[:, None] >> bits) & 1)
+    frac = np.stack([(quad == q).mean(axis=0) for q in range(4)], axis=1)
+    t = np.asarray(thetas, dtype=np.float64).reshape(d, 4)
+    want = t / t.sum(axis=1, keepdims=True)
+    P = np.ones((1, 1))
+    for th in np.asarray(thetas, dtype=np.float64):
+        P = np.kron(P, th)
+    expect = src.size * P.reshape(-1) / P.sum()
+    got = np.bincount(src * (1 << d) + dst, minlength=1 << (2 * d))
+    chi2 = float(((got - expect) ** 2 / expect).sum())
+    z = float(np.abs((got - expect) / np.sqrt(expect * (1 - P.reshape(-1) / P.sum()))).max())
+    return frac, want, float(stats.chi2.sf(chi2, expect.size - 1)), z
+
+
+@pytest.mark.parametrize("tpu_native", [False, True], ids=["counter_hash", "philox"])
+def test_descent_prng_law_at_d6(tpu_native):
+    """Both streams draw cell (x, y) with probability P_xy / m: the level
+    quadrant fractions within 0.01 over 2^16 slots, and a chi-square over
+    the 4096 cells."""
+    th = magm_paper.THETA_1[None].repeat(6, axis=0)
+    src, dst = ops.sample_edge_batch_prng(prng.PRNGKey(11), th, 1 << 16, tpu_native=tpu_native, device="cpu")
+    frac, want, p, z = _cell_law(src, dst, th)
+    np.testing.assert_allclose(frac, want, atol=0.01)
+    assert p > 1e-4, (p, z)
 
 
 @pytest.mark.cuda
@@ -256,6 +346,20 @@ def test_cuda_quadrant_descent_prng_equals_plain(cuda_device, d, slots):
     torch.cuda.synchronize()
     assert qd.PRNG_LAUNCHES == before + 1
     want = qd.quadrant_descent_prng_plain(SEED, cum, num_slots=slots)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, slots", [(1, 1), (4, 1000), (6, 100_003), (15, 1 << 20), (31, 300_001)])
+def test_cuda_quadrant_descent_native_equals_plain(cuda_device, d, slots):
+    """The Philox kernel bit for bit against its plain version, through
+    ``tpu_native=True``; one launch counted."""
+    cum = ops._batch_cumprobs(_batch_thetas(d, d)).to(cuda_device)
+    before = qd.NATIVE_LAUNCHES
+    got = qd.quadrant_descent_prng(SEED, cum, num_slots=slots, tpu_native=True)
+    torch.cuda.synchronize()
+    assert qd.NATIVE_LAUNCHES == before + 1
+    want = qd.quadrant_descent_native_plain(SEED, cum, num_slots=slots)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 

@@ -233,7 +233,7 @@ def test_kpgm_sampler_rejects_and_shim(ref):
 
     p = kpgm.KPGMParams(torch.from_numpy(_thetas(6, None)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KPGMSampler(SamplerConfig(params=p, backend="balldrop", device="cpu"))
+        KPGMSampler(SamplerConfig(params=p, backend="balldrop", mesh="auto", device="cpu"))
     with pytest.raises(TypeError):
         KPGMSampler(SamplerConfig(params=interop.from_reference(
             _thetas(6, None), np.zeros((4, 6), np.int8), np.zeros(2))[0], device="cpu"))

@@ -117,6 +117,7 @@ import sys
 import repro_torch, repro_torch.api, repro_torch.interop
 import repro_torch.core.quilt, repro_torch.kernels.ops, repro_torch.configs.magm_paper
 import repro_torch.core.naive, repro_torch.fit.magfit
+import repro_torch.core.balldrop, repro_torch.core.stats, repro_torch.analysis.validate
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 assert not bad, bad

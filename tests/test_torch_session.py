@@ -147,7 +147,7 @@ def test_default_device_raises_without_card(monkeypatch):
 @pytest.mark.parametrize(
     "change",
     [
-        {"backend": "balldrop"},
+        {"backend": "balldrop", "mesh": "auto"},
         {"split": True},
         {"mesh": "auto"},
     ],
