@@ -17,7 +17,11 @@ launch counts set to 0 just before and read just after:
   and the quilting count must both lie within 4 sigma of sum Q; the naive
   baseline on the card against the CPU at n = 2^10;
 - MAGFIT's dense scoring (dense_expected_logprob, elbo_dense) through the
-  magm_logprob kernel;
+  magm_logprob kernel, one (2^13)^2 launch;
+- both tile kernels against their plain versions at the shapes of
+  TILE_CHECKS (ragged edges, d = 0, d > 32, unaligned F bases, odd log-u
+  strides, 2048^2, 8192^2), timed at 2048^2 and 8192^2 with a warm and a
+  cold L2;
 - the counter-PRNG KPGM edge batch (2^25 edges) through
   quadrant_descent_prng;
 - the uniforms-operand kernels quadrant_descent (2^24 rows at d = 16, and a
@@ -52,6 +56,13 @@ Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  Output, last three lines: the card's name and power limit as
 nvidia-smi reports them, one JSON object with every kernel, and
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --tiles
+
+builds the kernels and runs the tile phase alone (both tile kernels against
+their plain versions at every shape of TILE_CHECKS, timed at 2048^2 and
+8192^2 with a warm and a cold L2), so that the tile kernels of two trees can
+be compared in one call.
 """
 
 from __future__ import annotations
@@ -86,6 +97,7 @@ FULL_LOG2_N = 15  # the largest paper configuration the exact path runs
 CHECK_LOG2_N = 12  # tables fit shared memory; small enough for the CPU
 NAIVE_TILE = 2048  # naive_sample's default tile
 NAIVE_CHECK_LOG2_N = 10  # the naive baseline on the card against the CPU
+DENSE_N = 1 << 13  # MAGFIT's dense scoring: one (n, n) magm_logprob tile
 BATCH_SLOTS = 1 << 25  # the KPGM edge batch (DEVICE_MAX_CANDIDATES)
 LOGQ_ATOL = 2e-4  # the reference's own log-Q tolerance (tests/test_kernels.py)
 BAND = 2e-4  # a Bernoulli compare may flip only where |log u - log q| <= BAND
@@ -400,22 +412,133 @@ def band_mismatches(got, want, logu, logq) -> tuple:
     return int(diff.sum()), int(band.sum())
 
 
-def tile_inputs(M: int, N: int, d: int, device, seed: int):
-    """Hard attribute rows, THETA_1's packed terms and a log-uniform draw."""
+def tile_inputs(M: int, N: int, d: int, device, seed: int, off: int = 0, pad: int = 0, flat: bool = False):
+    """Hard attribute rows (views ``off`` rows into their tensors), THETA_1's
+    packed terms (c0 alone at d = 0; with ``flat`` its thetas raised to
+    3 / d, so Q is near the size of three levels' product and masks hold
+    many ones) and a log-uniform draw whose rows are N + pad apart."""
     g = torch.Generator().manual_seed(seed)
-    fs = (torch.rand(M, d, generator=g) < DEFAULT_MU).float().to(device)
-    ft = (torch.rand(N, d, generator=g) < DEFAULT_MU).float().to(device)
-    packed = ops._packed_bilinear(magm.make_params(THETA_1, DEFAULT_MU, d).thetas, device)
-    logu = f32math.log(prng.uniform(prng.PRNGKey(seed), (M, N), minval=1e-38, maxval=1.0, device=device))
-    return fs, ft, packed, logu
+    fs = (torch.rand(M + off, d, generator=g) < DEFAULT_MU).float().to(device)[off:]
+    ft = (torch.rand(N + off, d, generator=g) < DEFAULT_MU).float().to(device)[off:]
+    if d:
+        thetas = magm.make_params(THETA_1, DEFAULT_MU, d).thetas
+        packed = ops._packed_bilinear(thetas ** (3.0 / d) if flat else thetas, device)
+    else:
+        packed = (*(torch.zeros(0, device=device) for _ in range(3)), torch.full((1,), -1.5, device=device))
+    wide = prng.uniform(prng.PRNGKey(seed), (M, N + pad), minval=1e-38, maxval=1.0, device=device)
+    return fs, ft, packed, f32math.log(wide)[:, :N]
+
+
+def cuda_ms_cold(fn, reps: int) -> float:
+    """Mean device time of ``fn`` with the L2 cold: before each call a read
+    of a 256 MB buffer (5x the 50 MB L2) evicts what the last call left
+    (its dirty lines are written back during the read, not during the
+    call), then a spin holds the stream while the host enqueues the call;
+    one pair of events around each call."""
+    flush = torch.ones(1 << 26, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush.sum()
+        torch.cuda._sleep(int((2 * host_s + 1e-4) * SPIN_CYCLES_PER_S))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def ptxas_usage(name: str, kernel: str) -> dict:
+    """Registers, shared memory, stack and spill bytes of ``kernel`` from
+    the -Xptxas -v report of this run's build of csrc/<name>.cu (empty when
+    the library was loaded from an earlier build)."""
+    pats = {
+        "registers": r"Used (\d+) registers", "smem_bytes": r"(\d+) bytes smem",
+        "stack_bytes": r"(\d+) bytes stack frame", "spill_store_bytes": r"(\d+) bytes spill stores",
+        "spill_load_bytes": r"(\d+) bytes spill loads",
+    }
+    out, inside = {}, False
+    for line in _build.BUILD_LOG.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside:
+            for key, pat in pats.items():
+                m = re.search(pat, line)
+                if m:
+                    out[key] = int(m.group(1))
+    return out
+
+
+# (M, N, d, F row offset, extra log-u row stride) held against the plain
+# versions: ragged edges with N % 4 != 0; one row and one column past the
+# 128 x 128 tile; d > 32 (three 16-deep chunks) with an odd log-u stride; a
+# single row; d = 0; F[1:] at d = 15 (bases not 16 B aligned) with an odd
+# stride; the naive path's tile and MAGFIT's dense-scoring tile, both timed
+# (at THETA_1 itself; the other shapes at its flattened thetas)
+TILE_CHECKS = (
+    (300, 513, 20, 0, 0), (129, 257, 15, 0, 0), (130, 70, 33, 0, 37), (1, 300, 15, 0, 0),
+    (200, 300, 0, 0, 0), (NAIVE_TILE, NAIVE_TILE, 15, 1, 37), (NAIVE_TILE, NAIVE_TILE, 15, 0, 0),
+    (DENSE_N, DENSE_N, 15, 0, 0),
+)
+
+
+def tile_timing(fs, ft, packed, logu, logq) -> dict:
+    """Both tile kernels, their plain versions, one float32 matmul of the
+    augmented operands (the same log-Q tile) and one PyTorch pass that moves
+    the same bytes (``same_bytes_ms``: a fill of the output, a compare of
+    log u), by CUDA events: ``ms`` back to back with a warm L2
+    (``cuda_ms``), ``cold_ms`` with the L2 flushed before each call
+    (``cuda_ms_cold``)."""
+    M, N, d = fs.shape[0], ft.shape[0], fs.shape[1]
+    u, v, w, c0 = packed
+    a = torch.cat([fs * w, fs @ u[:, None], torch.ones(M, 1, device=fs.device)], dim=1)
+    b = torch.cat([ft, torch.ones(N, 1, device=fs.device), (ft @ v + c0)[:, None]], dim=1)
+    lib_err = float((a @ b.T - logq).abs().max())
+    reps = 50 if M * N <= NAIVE_TILE ** 2 else 10
+    fns = {
+        "magm_logprob": (lambda: ml.magm_logprob(fs, ft, *packed), lambda: ml.magm_logprob_plain(fs, ft, *packed),
+                         lambda: a @ b.T),
+        # no single PyTorch call compares a bilinear form with a tile
+        "bernoulli_tile": (lambda: bt.bernoulli_tile(fs, ft, *packed, logu),
+                           lambda: bt.bernoulli_tile_plain(fs, ft, *packed, logu), None),
+    }
+    # one PyTorch pass that moves each kernel's bytes and computes nothing:
+    # the memory rate a tile could reach (printed, not in the kernels line)
+    fill = torch.empty((M, N), device=fs.device)
+    below = torch.empty((M, N), dtype=torch.bool, device=fs.device)
+    moves = {"magm_logprob": lambda: fill.fill_(1.0), "bernoulli_tile": lambda: torch.lt(logu, 0.0, out=below)}
+    out = {}
+    for (name, (kernel, plain, lib)), cell_bytes in zip(fns.items(), (4, 5)):
+        bound, bound_by = tile_bound_ms(M, N, d, cell_bytes)
+        out[name] = {
+            "ms": cuda_ms(kernel, reps), "cold_ms": cuda_ms_cold(kernel, reps),
+            "plain_ms": cuda_ms(plain, max(reps // 5, 2)),
+            "library_ms": cuda_ms(lib, reps) if lib else None,
+            "library_cold_ms": cuda_ms_cold(lib, reps) if lib else None,
+            "bound_ms": bound, "bound_by": bound_by, "same_bytes_ms": cuda_ms(moves[name], reps),
+        }
+    log(f"timing tile {M}x{N}x{d}: {json.dumps(out)} library_max_abs_err={lib_err}")
+    return out
 
 
 def phase_tiles_vs_plain(device) -> dict:
-    """magm_logprob and bernoulli_tile against their plain versions at a
-    ragged shape and at the naive path's tile; timings at the tile."""
-    errs, flips = [], 0
-    for M, N, d in ((300, 513, 20), (NAIVE_TILE, NAIVE_TILE, FULL_LOG2_N)):
-        fs, ft, packed, logu = tile_inputs(M, N, d, device, seed=M + d)
+    """magm_logprob and bernoulli_tile against their plain versions at every
+    shape of TILE_CHECKS; timings at the naive tile and the dense-scoring
+    tile; the compiler's report of both kernels."""
+    for name in ("magm_logprob", "bernoulli_tile"):
+        usage = ptxas_usage(name, f"{name}_kernel")
+        log(f"ptxas {name}_kernel: {json.dumps(usage) if usage else 'not built in this run'}")
+    errs, flips, timed = [], 0, {}
+    for M, N, d, off, pad in TILE_CHECKS:
+        timed_shape = (off, pad, d) == (0, 0, FULL_LOG2_N) and M in (NAIVE_TILE, DENSE_N)
+        fs, ft, packed, logu = tile_inputs(M, N, d, device, seed=M + d, off=off, pad=pad, flat=not timed_shape)
         got = ml.magm_logprob(fs, ft, *packed)
         want = ml.magm_logprob_plain(fs, ft, *packed)
         mask = bt.bernoulli_tile(fs, ft, *packed, logu)
@@ -423,43 +546,27 @@ def phase_tiles_vs_plain(device) -> dict:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not err <= LOGQ_ATOL:
-            raise AssertionError(f"magm_logprob differs from plain by {err} at {M}x{N}x{d}")
+            raise AssertionError(f"magm_logprob differs from plain by {err} at {M}x{N}x{d} off={off}")
         mism, band = band_mismatches(mask, plain, logu, want)
         errs.append(err)
         flips = max(flips, int((mask.int() - plain.int()).abs().max()))
-        log(f"tiles {M}x{N}x{d}: magm_logprob max_abs_err={err} bernoulli_tile "
-            f"mismatches={mism} (all inside the band of {band} cells) ones={float(mask.float().mean())}")
-    # timings at the naive tile (the last inputs)
-    M, N, d = fs.shape[0], ft.shape[0], fs.shape[1]
-    u, v, w, c0 = packed
-    a = torch.cat([fs * w, fs @ u[:, None], torch.ones(M, 1, device=device)], dim=1)
-    b = torch.cat([ft, torch.ones(N, 1, device=device), (ft @ v + c0)[:, None]], dim=1)
-    lib = float((a @ b.T - want).abs().max())
-    out = {
-        "magm_logprob": {
-            "max_abs_err": max(errs),
-            "ms": cuda_ms(lambda: ml.magm_logprob(fs, ft, *packed), reps=50),
-            "plain_ms": cuda_ms(lambda: ml.magm_logprob_plain(fs, ft, *packed), reps=10),
-            # one float32 matmul of the augmented operands computes the same tile
-            "library_ms": cuda_ms(lambda: a @ b.T, reps=50),
-        },
-        "bernoulli_tile": {
-            "max_abs_err": flips,
-            "ms": cuda_ms(lambda: bt.bernoulli_tile(fs, ft, *packed, logu), reps=50),
-            "plain_ms": cuda_ms(lambda: bt.bernoulli_tile_plain(fs, ft, *packed, logu), reps=10),
-            # no single PyTorch call compares a bilinear form with a tile
-            "library_ms": None,
-        },
-    }
-    out["magm_logprob"]["bound_ms"], out["magm_logprob"]["bound_by"] = tile_bound_ms(M, N, d, 4)
-    out["bernoulli_tile"]["bound_ms"], out["bernoulli_tile"]["bound_by"] = tile_bound_ms(M, N, d, 5)
-    prof = {
-        "magm_logprob": profiled_kernel_ms(lambda: ml.magm_logprob(fs, ft, *packed), 20, "magm_logprob_kernel"),
-        "bernoulli_tile": profiled_kernel_ms(lambda: bt.bernoulli_tile(fs, ft, *packed, logu), 20,
-                                             "bernoulli_tile_kernel"),
-    }
-    log(f"timing tile {M}x{N}x{d}: {json.dumps(out)} library_max_abs_err={lib} "
-        f"profiler_kernel_ms={json.dumps(prof)}")
+        log(f"tiles {M}x{N}x{d} F_offset_rows={off} logu_ld={logu.stride(0)}: magm_logprob max_abs_err={err} "
+            f"bernoulli_tile mismatches={mism} (all inside the band of {band} cells) ones={float(mask.float().mean())}")
+        if timed_shape:
+            timed[M] = tile_timing(fs, ft, packed, logu, want)
+        if M == NAIVE_TILE and (off, pad) == (0, 0):
+            prof = {
+                "magm_logprob": profiled_kernel_ms(lambda: ml.magm_logprob(fs, ft, *packed), 20,
+                                                   "magm_logprob_kernel"),
+                "bernoulli_tile": profiled_kernel_ms(lambda: bt.bernoulli_tile(fs, ft, *packed, logu), 20,
+                                                     "bernoulli_tile_kernel"),
+            }
+            log(f"profiler_kernel_ms tile {M}x{N}x{d}: {json.dumps(prof)}")
+        del fs, ft, logu, got, want, mask, plain
+    # the kernels line: the naive tile's timings, as in earlier runs
+    out = {name: {k: timed[NAIVE_TILE][name][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+           for name in ("magm_logprob", "bernoulli_tile")}
+    out["magm_logprob"]["max_abs_err"], out["bernoulli_tile"]["max_abs_err"] = max(errs), flips
     return out
 
 
@@ -620,13 +727,13 @@ def phase_naive_cross_device(device) -> None:
         f"mismatches={mism} (inside the band of {band} cells)")
 
 
-def phase_dense_scoring(device) -> None:
+def phase_dense_scoring(device) -> int:
     """MAGFIT's dense scoring through the magm_logprob kernel: the (n, n)
     E_q[log Q] at n = 2^13, and elbo_dense at n = 512, against the plain
-    products on the card."""
+    products on the card; returns the kernel's launches in the scoring."""
     rng = np.random.default_rng(SEED + 60)
     thetas = magm.make_params(THETA_1, DEFAULT_MU, FULL_LOG2_N).thetas
-    phi = rng.uniform(0.0, 1.0, (1 << 13, FULL_LOG2_N)).astype(np.float32)
+    phi = rng.uniform(0.0, 1.0, (DENSE_N, FULL_LOG2_N)).astype(np.float32)
     ops.reset_kernel_launches()
     got = magfit.dense_expected_logprob(phi, thetas, use_kernel=True, device=device)
     torch.cuda.synchronize()
@@ -644,6 +751,7 @@ def phase_dense_scoring(device) -> None:
         raise AssertionError(f"elbo_dense kernel {e_kernel} vs plain {e_plain}")
     log(f"dense scoring n=2^13: launches magm_logprob={launches} max_abs_err={err}; "
         f"elbo_dense n={n}: kernel={e_kernel} plain={e_plain}")
+    return launches
 
 
 # --- the uniforms-operand kernels and the paths that run them ---
@@ -1332,7 +1440,7 @@ def phase_validation_suite(device) -> None:
         raise AssertionError(f"3-sigma suite: failed claims {failed}, per-cell z {zmax}")
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -1342,6 +1450,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     phase_build()
+    if argv == ["--tiles"]:
+        tiles = phase_tiles_vs_plain(device)
+        log(nvidia_smi())
+        log(json.dumps({"tiles": tiles}))
+        return 0
     check = phase_kernel_vs_plain(device)
     tiles = phase_tiles_vs_plain(device)
     descent = phase_descent_prng(device)
@@ -1350,7 +1463,7 @@ def main() -> int:
     full, sampler, quilt_edges = phase_full_size(device)
     naive_launches = phase_naive_full_size(sampler, quilt_edges)
     phase_naive_cross_device(device)
-    phase_dense_scoring(device)
+    dense_launches = phase_dense_scoring(device)
     plans = [MAGMSampler(paper_config(lg, device)).plan for lg in (HOST_LOG2_N, CHECK_LOG2_N)]
     uniform = phase_uniform_kernels_vs_plain(device, plans)
     del plans
@@ -1390,7 +1503,9 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/csrc/magm_logprob.cu",
             "replaces": "src/repro/kernels/magm_logprob.py:46",
-            "launches": naive_launches["magm_logprob"],
+            # its user path: one (n, n) launch per dense scoring call (the
+            # 256 launches of the sum-Q walk are this script's own check)
+            "launches": dense_launches,
             **tiles["magm_logprob"],
         },
         {
@@ -1438,4 +1553,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -28,14 +28,31 @@ from repro_torch.kernels import ops
 
 LOGQ_ATOL = 2e-4
 BAND = 2e-4
-SHAPES = [(8, 8, 3), (100, 260, 7), (256, 256, 12), (300, 513, 20)]
+SHAPES = [
+    (8, 8, 3), (100, 260, 7), (256, 256, 12), (300, 513, 20),
+    # one row and one column past the CUDA tile's 128 x 128 edges; d > 32
+    # (three 16-deep chunks); a single row
+    (129, 257, 15), (130, 70, 33), (1, 300, 15),
+]
 SHAPE_IDS = [f"{m}x{n}x{d}" for m, n, d in SHAPES]
+# (M, N, d, F row offset, extra log-u row stride): every path of the CUDA
+# tile kernels.  N % 4 != 0 (513, 257, 70, 258) and an odd log-u stride take
+# the scalar stores and loads; N % 16 == 0 with log u contiguous the vector
+# ones; an offset of one row at d = 15 gives F bases that are not 16 B
+# aligned; d = 0 leaves only c0; 8192^2 is MAGFIT's dense scoring.
+CUDA_CASES = [(m, n, d, 0, 37) for m, n, d in SHAPES] + [
+    (2048, 2048, 15, 0, 37), (70, 90, 40, 0, 37), (2048, 2048, 15, 0, 0), (256, 258, 12, 0, 0),
+    (2048, 2048, 15, 1, 37), (300, 512, 15, 1, 0), (200, 300, 0, 0, 0), (8192, 8192, 15, 0, 0),
+]
+CUDA_IDS = SHAPE_IDS + ["2048x2048x15", "70x90x40"] + [
+    f"{m}x{n}x{d}-off{o}-ld{n + x}" for m, n, d, o, x in CUDA_CASES[len(SHAPES) + 2:]
+]
 
 
 def _thetas(rng, d):
     """Thetas whose product over d levels stays near the size of three
     levels' product, so Q is far from 0 at every d (masks have many ones)."""
-    return (rng.uniform(0.05, 1.0, (d, 2, 2)) ** (3.0 / d)).astype(np.float32)
+    return (rng.uniform(0.05, 1.0, (d, 2, 2)) ** (3.0 / max(d, 1))).astype(np.float32)
 
 
 def _inputs(M, N, d, seed=0, hard=False):
@@ -189,19 +206,22 @@ def test_tile_wrappers_raise_on_other_devices():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M, N, d", SHAPES + [(2048, 2048, 15), (70, 90, 40)], ids=SHAPE_IDS + ["2048x2048x15", "70x90x40"])
-def test_cuda_tiles_equal_plain(cuda_device, M, N, d):
-    fs, ft, th = _inputs(M, N, d, seed=d, hard=M == 2048)
-    args = [torch.from_numpy(fs).float().to(cuda_device), torch.from_numpy(ft).float().to(cuda_device),
-            *(t.to(cuda_device) for t in _packed(th))]
+@pytest.mark.parametrize("M, N, d, off, pad", CUDA_CASES, ids=CUDA_IDS)
+def test_cuda_tiles_equal_plain(cuda_device, M, N, d, off, pad):
+    fs, ft, th = _inputs(M + off, N + off, d, seed=d, hard=M == 2048)
+    # d = 0 has no thetas to decompose: c0 alone, the bilinear terms empty
+    packed = _packed(th) if d else (*(torch.zeros(0) for _ in range(3)), torch.tensor([-1.5]))
+    args = [torch.from_numpy(fs).float().to(cuda_device)[off:], torch.from_numpy(ft).float().to(cuda_device)[off:],
+            *(t.to(cuda_device) for t in packed)]
     before = ops.kernel_launches()
     got = ml.magm_logprob(*args)
     want = ml.magm_logprob_plain(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     assert err <= LOGQ_ATOL, f"max |err| {err:.3g} at {M}x{N}x{d}"
-    # log u as a strided corner of a wider draw, as ops.bernoulli_sample reads it
-    wide = prng.uniform(prng.PRNGKey(d), (M, N + 37), minval=1e-38, maxval=1.0, device=cuda_device)
+    # log u as a corner of a wider draw (row stride N + pad), as
+    # ops.bernoulli_sample reads it
+    wide = prng.uniform(prng.PRNGKey(d), (M, N + pad), minval=1e-38, maxval=1.0, device=cuda_device)
     logu = f32math.log(wide)[:, :N]
     mask = bt.bernoulli_tile(*args, logu)
     plain = bt.bernoulli_tile_plain(*args, logu)
