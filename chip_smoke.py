@@ -25,12 +25,15 @@ launch counts set to 0 just before and read just after:
 - the counter-PRNG KPGM edge batch (2^25 edges) through
   quadrant_descent_prng;
 - the uniforms-operand kernels quadrant_descent (2^24 rows at d = 16, and a
-  ragged count) and quilt_descent_lookup (one draw chunk with the n = 2^16
-  tables in L2, and with the n = 2^12 tables in shared memory) against
-  their plain versions;
+  ragged count) and quilt_descent_lookup in both arms (through the plan's
+  dense inverse, and searching the tables: one draw chunk and a ragged
+  count with the n = 2^16 tables in L2, and with the n = 2^12 tables in
+  shared memory; random block ids, and at n = 2^16 the host path's
+  graph-contiguous ones) against their plain versions, both arms timed at
+  4,194,304 rows of d = 16 with both rank patterns;
 - the default MAGM session at n = 2^16, whose exact round would pass
   DEVICE_MAX_CANDIDATES, so it takes the host path (threefry batches through
-  quilt_descent_lookup, arrival-order dedup on the host): every graph's
+  quilt_descent_lookup's inverse arm, arrival-order dedup on the host): every graph's
   distinct-cell count against its drawn target, the edge count's z against
   sum Q;
 - KPGMSampler(backend="host") at d = 20 (~40 M edges) through
@@ -46,8 +49,11 @@ launch counts set to 0 just before and read just after:
   quadrant fractions);
 - ball dropping (backend="balldrop") at n = 2^15 (one exact round through
   quilt_prng_descent_lookup with ranks=True; the count within 4 sigma of
-  bd_mean) and at n = 2^16 (the host loop through quadrant_descent), and
-  the card against the CPU at n = 2^12 in every mode and lookup arm;
+  bd_mean) and at n = 2^16 (the host loop: proposals descended and looked
+  up by quilt_descent_lookup on the card, the accepted node pairs copied to
+  the host and deduped there; no quadrant_descent), and the card against
+  the CPU at n = 2^12 in every mode and lookup arm, the host loop in both
+  arms of quilt_descent_lookup;
 - the 3-sigma validation suite on the card: THETA_2, n = 2^12, 16 seeds of
   each of "auto", "host" and "balldrop", every pair and each against the
   closed-form moments, no failed claim.
@@ -63,10 +69,17 @@ builds the kernels and runs the tile phase alone (both tile kernels against
 their plain versions at every shape of TILE_CHECKS, timed at 2048^2 and
 8192^2 with a warm and a cold L2), so that the tile kernels of two trees can
 be compared in one call.
+
+    python3 chip_smoke.py --lookup
+
+builds the kernels and runs quilt_descent_lookup's checks and timings alone
+(both arms against the plain version at n = 2^16 and 2^12, timed at the
+main-path shape with random and graph-contiguous block ids).
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import re
@@ -827,13 +840,39 @@ def uniform_kernel_timing(fn, kernel: str, plain, bound: tuple) -> dict:
     }
 
 
+def host_round_blocks(plan: quilt.QuiltPlan, rows: int):
+    """The (kb, lb) of the first ``rows`` rows of the quilt host path's first
+    round at this plan (``kpgm._graph_lookup`` over the asks of the B^2
+    graphs' drawn targets): graph-contiguous block ids."""
+    _, sub = prng.split(prng.PRNGKey(SEED + 96))
+    targets = kpgm._draw_targets(sub, plan.thetas.cpu(), plan.num_graphs, 1 << plan.d)
+    asks, _ = quilt.dedup.plan_asks(targets, 1.05)
+    kb, lb = kpgm._graph_lookup(asks, plan.B, (None, None), plan.device)[:2]
+    return kb[:rows].contiguous(), lb[:rows].contiguous()
+
+
+def lookup_arms(plan: quilt.QuiltPlan) -> dict:
+    """quilt_descent_lookup's two arms at this plan: through the dense
+    inverse, and searching the tables (no inverse).  A tree whose wrapper
+    takes no inverse (the kernel before its redesign) has the search arm
+    alone, so that ``--lookup`` times both kernels in one call."""
+    arms = {"inverse": plan.inv, "search": None}
+    if "inv" not in inspect.signature(qd.quilt_descent_lookup).parameters:
+        del arms["inverse"]
+    return arms
+
+
+def lookup(args, inv):
+    """quilt_descent_lookup on ``args`` through ``inv`` (None: search)."""
+    return qd.quilt_descent_lookup(*args) if inv is None else qd.quilt_descent_lookup(*args, inv)
+
+
 def phase_uniform_kernels_vs_plain(device, plans) -> dict:
     """quadrant_descent at its main-path shape (a draw chunk of the KPGM
     host loop at d = 20, and a ragged count) and at 2^24 rows of d = 16
-    (and a ragged count), and quilt_descent_lookup on one draw chunk of the
-    main path with the tables of each plan (n = 2^16: L2; n = 2^12: shared
-    memory), each equal to its plain version; timed at the main-path shapes
-    (the d = 16 descent is timed too, for the record)."""
+    (and a ragged count), each equal to its plain version, the d = 20 shape
+    timed (the d = 16 one too, for the record); then
+    phase_lookup_vs_plain."""
     chunk = kpgm.DRAW_CHUNK_ELEMS // KPGM_D
     cases = (
         (KPGM_D, kpgm._level_cumprobs(kpgm.make_params(THETA_1, KPGM_D).thetas), (chunk, chunk - 333)),
@@ -856,34 +895,64 @@ def phase_uniform_kernels_vs_plain(device, plans) -> dict:
         log(f"timing quadrant_descent rows={sizes[0]} d={d}: {json.dumps(timings[d])}")
         del u
     descent = {"max_abs_err": max(errs), **timings[KPGM_D]}
+    return {"quadrant_descent": descent, "quilt_descent_lookup": phase_lookup_vs_plain(device, plans)}
 
-    errs, lookup = [], None
+
+def phase_lookup_vs_plain(device, plans) -> dict:
+    """quilt_descent_lookup in both arms (dense inverse, table search) on
+    one draw chunk of the main path and a ragged count with the tables of
+    each plan (n = 2^16: L2; n = 2^12: shared memory), with random block
+    ids, and at n = 2^16 also with the host path's graph-contiguous ones,
+    each equal to the plain version (which searches the tables).  Both arms
+    are timed at n = 2^16 with both rank patterns; the kernels line takes
+    the inverse arm with contiguous ranks, the quilt host path's launch."""
+    errs, timed = [], {}
     for plan in plans:
         rows = kpgm.DRAW_CHUNK_ELEMS // plan.d
-        u = test_uniforms(rows, plan.cum, SEED + plan.d)
         g = torch.Generator(device=device).manual_seed(SEED + 71)
-        kb = torch.randint(0, plan.B, (rows,), generator=g, device=device, dtype=torch.int32)
-        lb = torch.randint(0, plan.B, (rows,), generator=g, device=device, dtype=torch.int32)
-        args = (u, plan.cum, kb, lb, plan.table_cfg, plan.table_node)
-        got = qd.quilt_descent_lookup(*args)
-        errs.append(equal_or_raise(got, qd.quilt_descent_lookup_plain(*args), f"quilt_descent_lookup n={plan.n}"))
-        smem = qd.descent_tables_in_shared_memory(plan.d, plan.table_cfg)
-        hits = float((got[2] >= 0).float().mean())
-        log(f"quilt_descent_lookup == plain: n={plan.n} rows={rows} d={plan.d} tables={tuple(plan.table_cfg.shape)} "
-            f"tables_in_smem={smem} src_hit_rate={hits}")
+        blocks = {"random": [torch.randint(0, plan.B, (rows,), generator=g, device=device, dtype=torch.int32)
+                             for _ in range(2)]}
         if plan.n == 1 << HOST_LOG2_N:
-            lookup = uniform_kernel_timing(
-                lambda: qd.quilt_descent_lookup(*args), "quilt_descent_lookup_kernel",
-                lambda: qd.quilt_descent_lookup_plain(*args), uniform_bound_ms(rows, plan.d, plan.table_cfg),
-            )
-            log(f"timing quilt_descent_lookup n={plan.n} rows={rows}: {json.dumps(lookup)}")
-    lookup["max_abs_err"] = max(errs)
-    return {"quadrant_descent": descent, "quilt_descent_lookup": lookup}
+            blocks["contiguous"] = host_round_blocks(plan, rows)
+        for ranks, (kb, lb) in blocks.items():
+            for r in (rows, rows - 333):
+                u = test_uniforms(r, plan.cum, SEED + plan.d + r % 1000)
+                args = (u, plan.cum, kb[:r], lb[:r], plan.table_cfg, plan.table_node)
+                want = qd.quilt_descent_lookup_plain(*args)
+                for arm, inv in lookup_arms(plan).items():
+                    got = lookup(args, inv)
+                    errs.append(equal_or_raise(got, want, f"quilt_descent_lookup {arm} {ranks} n={plan.n} rows={r}"))
+                hits = float((want[2] >= 0).float().mean())
+                log(f"quilt_descent_lookup == plain (arms {list(lookup_arms(plan))}): n={plan.n} rows={r} "
+                    f"d={plan.d} ranks={ranks} tables={tuple(plan.table_cfg.shape)} "
+                    f"tables_in_smem={qd.descent_tables_in_shared_memory(plan.d, plan.table_cfg)} src_hit_rate={hits}")
+                del u, args, want, got
+            if plan.n != 1 << HOST_LOG2_N:
+                continue
+            u = test_uniforms(rows, plan.cum, SEED + plan.d)
+            for arm, inv in lookup_arms(plan).items():
+                args = (u, plan.cum, kb, lb, plan.table_cfg, plan.table_node)
+                timed[arm, ranks] = uniform_kernel_timing(
+                    lambda: lookup(args, inv), "quilt_descent_lookup_kernel",
+                    lambda: qd.quilt_descent_lookup_plain(*args), uniform_bound_ms(rows, plan.d, plan.table_cfg),
+                )
+                log(f"timing quilt_descent_lookup {arm} ranks={ranks} n={plan.n} rows={rows}: "
+                    f"{json.dumps(timed[arm, ranks])}")
+            del u
+    log("quilt_descent_lookup ms at the main-path shape: "
+        + " ".join(f"{arm}/{ranks}={t['ms']}" for (arm, ranks), t in timed.items()))
+    main_path = ("inverse" if ("inverse", "contiguous") in timed else "search", "contiguous")
+    return {"max_abs_err": max(errs), **timed[main_path]}
 
 
 def profiled_call(fn) -> tuple:
     """(result, wall ms, device-busy ms, top device ops) of one call under
-    torch.profiler: busy is the sum of the device time of every op."""
+    torch.profiler: busy is the sum of the device events' times (kernels,
+    copies, fills).  A CPU op's device time repeats that of the kernels it
+    launched, so the sum over every event, the measure of earlier runs,
+    counts most of the busy time twice; it is logged beside, as
+    ``all_events_ms``."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -895,8 +964,10 @@ def profiled_call(fn) -> tuple:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
     ev = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in ev) / 1e3
-    top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    device = [e for e in ev if e.device_type != DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    log(f"profiler: device events {busy} ms, all_events_ms={sum(e.self_device_time_total for e in ev) / 1e3}")
+    top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:6]
     return out, wall, busy, [(e.key, round(e.self_device_time_total / 1e3, 3)) for e in top]
 
 
@@ -991,16 +1062,18 @@ def phase_host_session(device) -> dict:
 
 def stage_host_path(plan, device) -> None:
     """Device ms of one draw chunk's stages on the host path (threefry,
-    the lookup kernel, the copy of the four id arrays to the host), timed
-    one by one at the main path's chunk."""
+    the lookup kernel through the plan's dense inverse with the round's
+    graph-contiguous block ids, the copy of the four id arrays to the
+    host), timed one by one at the main path's chunk."""
     rows = kpgm.DRAW_CHUNK_ELEMS // plan.d
     key = prng.PRNGKey(SEED + 95)
     u = prng.uniform(key, (rows, plan.d), offset=rows * plan.d, device=device)
-    kb = torch.zeros(rows, dtype=torch.int32, device=device)
-    out = qd.quilt_descent_lookup(u, plan.cum, kb, kb, plan.table_cfg, plan.table_node)
+    kb, lb = host_round_blocks(plan, rows)
+    args = (u, plan.cum, kb, lb, plan.table_cfg, plan.table_node, plan.inv)
+    out = qd.quilt_descent_lookup(*args)
     stages = {
         "threefry_uniforms": lambda: prng.uniform(key, (rows, plan.d), offset=rows * plan.d, device=device),
-        "quilt_descent_lookup": lambda: qd.quilt_descent_lookup(u, plan.cum, kb, kb, plan.table_cfg, plan.table_node),
+        "quilt_descent_lookup": lambda: qd.quilt_descent_lookup(*args),
         "ids_to_host": lambda: [o.cpu() for o in out],
     }
     log(f"host path stage_ms per draw chunk of {rows} rows: "
@@ -1299,7 +1372,8 @@ def phase_balldrop_full_size(device) -> dict:
 def phase_balldrop_host(device) -> dict:
     """MAGMSampler(backend="balldrop") at n = 2^16: the exact budget and
     the drawn first ask pass DEVICE_MAX_CANDIDATES, so the host loop runs
-    (threefry proposals through quadrant_descent, lookups and dedup on the
+    (threefry proposals descended and looked up by quilt_descent_lookup on
+    the card, no quadrant_descent; the accepted node pairs deduped on the
     host); unique in-range edges, their count within 4 sigma of bd_mean."""
     sampler = MAGMSampler(balldrop_config(HOST_LOG2_N, device))
     plan = sampler.plan
@@ -1315,8 +1389,10 @@ def phase_balldrop_host(device) -> dict:
     launches = ops.kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     delta = {k: v - before[k] for k, v in balldrop.DISPATCH_COUNTERS.items()}
-    if delta["exact_fallbacks"] != 1 or delta["device_rounds"] or launches["quadrant_descent"] < 1:
+    if delta["exact_fallbacks"] != 1 or delta["device_rounds"] or launches["quilt_descent_lookup"] < 1:
         raise AssertionError(f"n=2^{HOST_LOG2_N} ball dropping did not take the host loop: {launches} {delta}")
+    if launches["quadrant_descent"]:
+        raise AssertionError(f"n=2^{HOST_LOG2_N} ball dropping still launched quadrant_descent: {launches}")
     check_edges(gs.edges, plan.n, f"balldrop host n=2^{HOST_LOG2_N}")
     z = (gs.num_edges - plan.bd_mean) / plan.bd_std
     log(f"balldrop host n=2^{HOST_LOG2_N}: edges={gs.num_edges} z_vs_bd_mean={z} bd_cost={plan.bd_cost} "
@@ -1331,16 +1407,17 @@ def phase_balldrop_host(device) -> dict:
         f"host_dedup_s_per_run={(kpgm.HOST_DEDUP_SECONDS - dedup0) / 2} profiled_run wall_ms={wall} "
         f"device_busy_ms={busy} device_idle_share={1 - busy / wall} top_device_ops={top}")
     stage_balldrop_host(plan)
-    return {"quadrant_descent": launches["quadrant_descent"]}
+    return {"quilt_descent_lookup": launches["quilt_descent_lookup"]}
 
 
 def stage_balldrop_host(plan) -> None:
     """Host-clock ms of one host-loop round of DEVICE_MAX_CANDIDATES
-    proposals, stage by stage (the samples before it ran every stage at
-    this shape, so each is warm): the threefry descent
-    (kpgm.sample_edge_batch, kernel quadrant_descent), the ranks
-    (prng.randint), the copies to the host, the per-block lookups on the
-    host, and the arrival-order dedup of the accepted proposals."""
+    proposals, stage by stage as balldrop._propose_host and the loop run
+    them (the samples before it ran every stage at this shape, so each is
+    warm): the ranks (prng.randint), the threefry draw with the kernel
+    quilt_descent_lookup (kpgm.descend_draw through the plan's dense
+    inverse), the compaction of the accepted node pairs on the card, their
+    copy to the host, and the arrival-order dedup on the host."""
     ask = kpgm.DEVICE_MAX_CANDIDATES
     uk, kk = prng.split(prng.PRNGKey(SEED + 155))
 
@@ -1351,17 +1428,20 @@ def stage_balldrop_host(plan) -> None:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
-    (scfg, dcfg), draw = clock(lambda: kpgm.sample_edge_batch(uk, plan.thetas, ask, device=plan.device))
     kl, ranks = clock(lambda: prng.randint(kk, (ask, 2), 0, plan.B, device=plan.device))
-    (sc, dc, kl), copy = clock(lambda: (scfg.cpu().numpy().astype(np.int64), dcfg.cpu().numpy().astype(np.int64),
-                                        kl.cpu().numpy()))
-    (sn, dn), lookups = clock(lambda: (balldrop._lookup_host(plan.part, sc, kl[:, 0]),
-                                       balldrop._lookup_host(plan.part, dc, kl[:, 1])))
-    ok = (sn >= 0) & (dn >= 0)
-    flat = sn[ok] * plan.n + dn[ok]
-    _, dedup_ms = clock(lambda: balldrop._fresh(flat, np.empty(0, np.int64)))
-    log(f"balldrop host round stage_ms ({ask} proposals, {int(ok.sum())} accepted): threefry_descent={draw} "
-        f"ranks={ranks} to_host={copy} host_lookups={lookups} host_dedup={dedup_ms}")
+    lookup = (kl[:, 0].contiguous(), kl[:, 1].contiguous(), plan.table_cfg, plan.table_node, plan.inv)
+    (_, _, sn, dn), draw = clock(lambda: kpgm.descend_draw(uk, plan.cum, ask, lookup=lookup))
+
+    def compact():
+        ok = (sn >= 0) & (dn >= 0)
+        return sn[ok].to(torch.int64) * plan.n + dn[ok].to(torch.int64)
+
+    flat, compaction = clock(compact)
+    host, copy = clock(lambda: flat.cpu().numpy())
+    _, dedup_ms = clock(lambda: balldrop._fresh(host, np.empty(0, np.int64)))
+    log(f"balldrop host round stage_ms ({ask} proposals, {host.size} accepted): ranks={ranks} "
+        f"threefry_and_quilt_descent_lookup={draw} device_compaction={compaction} to_host={copy} "
+        f"host_dedup={dedup_ms}")
 
 
 def phase_balldrop_cross_device(device) -> None:
@@ -1391,11 +1471,14 @@ def phase_balldrop_cross_device(device) -> None:
         if (launches == 0) != (kw.get("use_kernel") is False):
             raise AssertionError(f"balldrop {name}: {launches} launches of quilt_prng_descent_lookup")
         log(f"cross-device balldrop {name} n=2^{CHECK_LOG2_N}: edges={got.kept_edges()} counts={got.counts.tolist()}")
-    got = balldrop._balldrop_sample_host(key, cuda_s.plan, target=20_000, max_rounds=4, oversample=1.05)
     want = balldrop._balldrop_sample_host(key, cpu_s.plan, target=20_000, max_rounds=4, oversample=1.05)
-    if not np.array_equal(got, want):
-        raise AssertionError("balldrop host loop: the card's edges differ from the CPU's")
-    log(f"cross-device balldrop host loop n=2^{CHECK_LOG2_N}: edges={got.shape[0]}")
+    for arm, inv in lookup_arms(cuda_s.plan).items():
+        got = balldrop._balldrop_sample_host(
+            key, cuda_s.plan._replace(inv=inv), target=20_000, max_rounds=4, oversample=1.05
+        )
+        if not np.array_equal(got, want):
+            raise AssertionError(f"balldrop host loop ({arm} arm): the card's edges differ from the CPU's")
+        log(f"cross-device balldrop host loop n=2^{CHECK_LOG2_N} ({arm} arm): edges={got.shape[0]}")
     cfg = SamplerConfig(params=kpgm.make_params(THETA_1, CHECK_LOG2_N), backend="balldrop")
     for num_edges in (None, 5000):
         got = KPGMSampler(cfg.replace(device=device)).sample(key, num_edges=num_edges)
@@ -1454,6 +1537,12 @@ def main(argv) -> int:
         tiles = phase_tiles_vs_plain(device)
         log(nvidia_smi())
         log(json.dumps({"tiles": tiles}))
+        return 0
+    if argv == ["--lookup"]:
+        plans = [MAGMSampler(paper_config(lg, device)).plan for lg in (HOST_LOG2_N, CHECK_LOG2_N)]
+        lookup = phase_lookup_vs_plain(device, plans)
+        log(nvidia_smi())
+        log(json.dumps({"quilt_descent_lookup": lookup}))
         return 0
     check = phase_kernel_vs_plain(device)
     tiles = phase_tiles_vs_plain(device)

@@ -28,9 +28,10 @@ A device round's lookup takes one of three arms, bit-identical to each
 other: the kernel ``quilt_prng_descent_lookup`` with ``ranks=True`` (its
 plain version on a CPU tensor), the dense-inverse gather, or the by-config
 short-circuit.  A first ask over ``DEVICE_MAX_CANDIDATES`` takes the host
-loop (:func:`_balldrop_sample_host`): threefry proposals descended by the
-kernel ``quadrant_descent`` (``kpgm.sample_edge_batch``), looked up and
-deduped on the host.  The result is a :class:`repro_torch.core.quilt.QuiltRun`
+loop (:func:`_balldrop_sample_host`): threefry proposals descended and
+looked up on the plan's device by the kernel ``quilt_descent_lookup``
+(through the dense inverse where the plan has it), the accepted node pairs
+copied to the host and deduped there.  The result is a :class:`repro_torch.core.quilt.QuiltRun`
 with ``sampler="balldrop"``, one dedup graph per sample.
 """
 
@@ -44,7 +45,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import dedup, kpgm, kron, partition, prng, quilt
+from repro_torch.core import dedup, kpgm, kron, prng, quilt
 from repro_torch.kernels import ops
 
 __all__ = ["balldrop_run", "DISPATCH_COUNTERS"]
@@ -141,29 +142,25 @@ def _bd_round_body(
     return snode, dnode, take, counts
 
 
-def _lookup_host(part, cfg: np.ndarray, block: np.ndarray) -> np.ndarray:
-    """Node ids of the configs ``cfg`` in the blocks ``block`` (host int64
-    arrays), -1 on a miss: one sorted-table search per block."""
-    out = np.full(cfg.shape[0], -1, dtype=np.int64)
-    for b in range(part.B):
-        m = block == b
-        if m.any():
-            out[m] = partition.lookup_nodes(part.sorted_configs[b], part.sorted_nodes[b], cfg[m])
-    return out
-
-
-def _propose_host(key: torch.Tensor, plan: quilt.QuiltPlan, ask: int) -> Tuple[np.ndarray, np.ndarray]:
-    """One host proposal batch: (snode, dnode) int64 host arrays, -1 on a
-    miss.  The descent is ``kpgm.sample_edge_batch`` on the plan's device
-    (kernel ``quadrant_descent``), the ranks ``prng.randint``; the lookups
-    run on the host against the sorted tables."""
+def _propose_host(key: torch.Tensor, plan: quilt.QuiltPlan, ask: int, cuts=()) -> Tuple[np.ndarray, np.ndarray]:
+    """One host-loop batch of ``ask`` proposals: the flat node pairs
+    ``snode * n + dnode`` of the accepted ones in proposal order, and for
+    each proposal index in ``cuts`` the number accepted before it, as host
+    int64 arrays.  The uniforms are ``kpgm.sample_edge_batch``'s threefry
+    draw (``plan.cum`` is its level table), the block ranks
+    ``prng.randint``; on the plan's device the kernel
+    ``quilt_descent_lookup`` descends and looks up each proposal (a miss on
+    either side is the rejection), and only the accepted pairs are copied."""
     uk, kk = prng.split(key)
-    scfg, dcfg = kpgm.sample_edge_batch(uk, plan.thetas, ask, device=plan.device)
-    kl = prng.randint(kk, (ask, 2), 0, plan.B, device=plan.device).cpu().numpy()
-    return (
-        _lookup_host(plan.part, scfg.cpu().numpy().astype(np.int64), kl[:, 0]),
-        _lookup_host(plan.part, dcfg.cpu().numpy().astype(np.int64), kl[:, 1]),
-    )
+    kl = prng.randint(kk, (ask, 2), 0, plan.B, device=plan.device)
+    lookup = (kl[:, 0].contiguous(), kl[:, 1].contiguous(), plan.table_cfg, plan.table_node, plan.inv)
+    del kl
+    _, _, sn, dn = kpgm.descend_draw(uk, plan.cum, ask, lookup=lookup)
+    ok = (sn >= 0) & (dn >= 0)
+    flat = sn[ok].to(torch.int64) * plan.n + dn[ok].to(torch.int64)
+    accepted = torch.cumsum(ok, 0)
+    before = torch.cat([accepted.new_zeros(1), accepted])[torch.as_tensor(cuts, dtype=torch.int64, device=ok.device)]
+    return flat.cpu().numpy(), before.cpu().numpy()
 
 
 def _fresh(flat: np.ndarray, seen: np.ndarray) -> np.ndarray:
@@ -193,9 +190,8 @@ def _balldrop_sample_host(
             break
         ask = min(dedup.bucket_size(int(need * oversample * plan.bd_cost) + 16), kpgm.DEVICE_MAX_CANDIDATES)
         key, sub = prng.split(key)
-        sn, dn = _propose_host(sub, plan, ask)
-        ok = (sn >= 0) & (dn >= 0)
-        seen = np.concatenate([seen, _fresh(sn[ok] * n + dn[ok], seen)])
+        flat, _ = _propose_host(sub, plan, ask)
+        seen = np.concatenate([seen, _fresh(flat, seen)])
     seen = seen[:target]
     return np.stack([seen // n, seen % n], axis=1)
 
@@ -221,16 +217,13 @@ def _host_balldrop_topup(
             break
         asks, batch = dedup.plan_asks(needs, oversample * plan.bd_cost)
         key, sub = prng.split(key)
-        sn, dn = _propose_host(sub, plan, batch)
+        flat, ends = _propose_host(sub, plan, batch, cuts=np.cumsum(asks))
         DISPATCH_COUNTERS["host_topup_rounds"] += 1
-        flat_all = np.where((sn >= 0) & (dn >= 0), sn * n + dn, -1)
-        off = 0
         for g, ask in enumerate(asks):
             if ask == 0:
                 continue
-            chunk = flat_all[off : off + int(ask)]
-            off += int(ask)
-            fresh = _fresh(chunk[chunk >= 0], seen_pairs[g])[: int(needs[g])]
+            chunk = flat[(ends[g - 1] if g else 0) : ends[g]]
+            fresh = _fresh(chunk, seen_pairs[g])[: int(needs[g])]
             if fresh.size == 0:
                 continue
             seen_pairs[g] = np.concatenate([seen_pairs[g], fresh])

@@ -182,8 +182,9 @@ def descend_draw(
 
     The draw goes ``DRAW_CHUNK_ELEMS // d`` rows at a time (``prng.uniform``'s
     ``offset``), each chunk through the ``quadrant_descent`` kernel, or with
-    ``lookup=(kb, lb, table_cfg, table_node)`` (kb, lb per row) through
-    ``quilt_descent_lookup``; only the int32 outputs are kept.  Returns
+    ``lookup=(kb, lb, table_cfg, table_node, inv)`` (kb, lb per row; inv the
+    tables' dense inverse or None) through ``quilt_descent_lookup``; only
+    the int32 outputs are kept.  Returns
     ``(src, dst)``, or ``(src_cfg, dst_cfg, src_node, dst_node)`` with a
     lookup.
     """
@@ -200,8 +201,8 @@ def descend_draw(
         if lookup is None:
             parts = qd.quadrant_descent(u, cum)
         else:
-            kb, lb, tcfg, tnode = lookup
-            parts = qd.quilt_descent_lookup(u, cum, kb[a:b], lb[a:b], tcfg, tnode)
+            kb, lb, tcfg, tnode, inv = lookup
+            parts = qd.quilt_descent_lookup(u, cum, kb[a:b], lb[a:b], tcfg, tnode, inv)
         del u
         for o, p in zip(outs, parts):
             o[a:b] = p
@@ -258,18 +259,19 @@ class _Graphs:
 
 
 def _graph_lookup(asks: np.ndarray, num_blocks: int, tables, device):
-    """(kb, lb, table_cfg, table_node) of a batch split by ``asks``: row r
-    of graph g = k * B + l looks up block rows k and l."""
+    """(kb, lb, table_cfg, table_node, inv) of a batch split by ``asks``
+    (``tables = (table_cfg, table_node, inv)``): row r of graph g = k * B + l
+    looks up block rows k and l."""
     g = torch.repeat_interleave(
         torch.arange(len(asks), dtype=torch.int32, device=device),
         torch.from_numpy(np.asarray(asks, dtype=np.int64)).to(device),
     )
-    return g // num_blocks, g % num_blocks, tables[0], tables[1]
+    return (g // num_blocks, g % num_blocks, *tables)
 
 
 def _draw_round(key, cum, n, asks, batch, lookup_spec):
     """One host round's candidates as host arrays: flat keys, and node ids
-    when ``lookup_spec=(B, (table_cfg, table_node))`` is given."""
+    when ``lookup_spec=(B, (table_cfg, table_node, inv))`` is given."""
     lookup = None if lookup_spec is None else _graph_lookup(asks, lookup_spec[0], lookup_spec[1], cum.device)
     out = descend_draw(key, cum, batch, lookup=lookup)
     flat = (out[0].to(torch.int64) * n + out[1].to(torch.int64)).cpu().numpy()
@@ -347,7 +349,7 @@ def _sample_many(
 ):
     """Algorithm 1 for ``count`` independent graphs sharing their batches
     (the reference's ``kpgm_sample_many``), with the same key splits and
-    asks.  With ``lookup_tables=(B, (table_cfg, table_node))`` graph
+    asks.  With ``lookup_tables=(B, (table_cfg, table_node, inv))`` graph
     g = k * B + l also looks its configs up in blocks k and l, and the
     node ids ride with their keys through the dedup.  Returns the
     per-graph state (:class:`_Graphs`) and the drawn targets."""

@@ -683,7 +683,7 @@ def _host_quilt_topup(
     in blocks k and l), each graph's fresh cells appended to ``seen_cfg``.
     Appends ``(graph, (E, 2))`` pieces of the cells whose two lookups hit
     to ``tail``; returns the per-graph counts."""
-    lookup_spec = (plan.B, (plan.table_cfg, plan.table_node))
+    lookup_spec = (plan.B, (plan.table_cfg, plan.table_node, plan.inv))
     rounds = kpgm._host_rounds(key, plan.cum, 1 << plan.d, targets, seen_cfg, max_rounds, oversample, lookup_spec)
     for fresh in rounds:
         DISPATCH_COUNTERS["host_topup_rounds"] += 1
@@ -705,7 +705,7 @@ def _quilt_sample_host(key: torch.Tensor, plan: QuiltPlan, *, max_rounds: int, o
     key, sub = prng.split(key)
     graphs, targets = kpgm._sample_many(
         sub, plan.thetas, B * B, max_rounds=max_rounds, oversample=oversample,
-        backend="auto", device=plan.device, lookup_tables=(B, (plan.table_cfg, plan.table_node)),
+        backend="auto", device=plan.device, lookup_tables=(B, (plan.table_cfg, plan.table_node, plan.inv)),
     )
     edges = []
     for s, d in zip(graphs.snode, graphs.dnode):

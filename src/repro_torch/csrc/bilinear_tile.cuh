@@ -53,6 +53,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace qkg {
 
 constexpr int kWarpsM = 4;                      // warps along the tile's rows
@@ -73,25 +75,6 @@ struct TileSmem {
   float row[kTileM];            // (F_s u)[i], accumulated over the chunks
   float col[kTileN];            // (F_t v)[j]
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // Issues the copies of one stage into buffer `buf`: attributes k0..k0+kc-1
 // of the rows i0.. of F_s and j0.. of F_t, and of u, v, w.

@@ -33,7 +33,7 @@ versions are :func:`quadrant_descent_plain` and
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -540,7 +540,7 @@ def _uniforms_library(name: str):
         lib.qkg_quadrant_descent.argtypes = [i, p, p, i, i, p, p, p]
         lib.qkg_quadrant_descent.restype = i
     else:
-        lib.qkg_quilt_descent_lookup.argtypes = [i, p, p, i, p, p, p, p, i, i, i, p, p, p, p, p]
+        lib.qkg_quilt_descent_lookup.argtypes = [i, p, p, i, p, p, p, p, p, i, i, i, p, p, p, p, p]
         lib.qkg_quilt_descent_lookup.restype = i
         lib.qkg_descent_tables_in_smem.argtypes = [i, i, i, i]
         lib.qkg_descent_tables_in_smem.restype = i
@@ -625,6 +625,7 @@ def quilt_descent_lookup(
     lb: torch.Tensor,
     table_cfg: torch.Tensor,
     table_node: torch.Tensor,
+    inv: Optional[torch.Tensor] = None,
 ):
     """Descent of an (N, d) float32 uniforms operand + lookup of each row's
     configs in block rows ``kb`` / ``lb`` (N,) of the (B, L) tables: four
@@ -632,9 +633,11 @@ def quilt_descent_lookup(
     a miss.
 
     On a CUDA tensor this launches the CUDA kernel on the current stream and
-    raises if the launch fails; on a CPU tensor it is the plain version.
-    On CUDA every argument is contiguous, on u's device; ``kb``, ``lb`` and
-    the tables int32.
+    raises if the launch fails; on a CPU tensor it is the plain version,
+    which searches the tables.  On CUDA every argument is contiguous, on u's
+    device; ``kb``, ``lb`` and the tables int32.  ``inv``, the plan's
+    (B, 2^d) int32 dense inverse of the same tables, makes each lookup one
+    gather there; without it the kernel searches the tables.
     """
     global LOOKUP_LAUNCHES
     dev = u.device
@@ -645,7 +648,8 @@ def quilt_descent_lookup(
     _check_uniforms(u, cum)
     n = u.shape[0]
     kb, lb = kb.reshape(-1), lb.reshape(-1)
-    for name, t in (("kb", kb), ("lb", lb), ("table_cfg", table_cfg), ("table_node", table_node)):
+    named = [("kb", kb), ("lb", lb), ("table_cfg", table_cfg), ("table_node", table_node)]
+    for name, t in named + ([] if inv is None else [("inv", inv)]):
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"{name} must be contiguous int32 on {dev}, got {t.dtype} on {t.device}")
     if kb.numel() != n or lb.numel() != n:
@@ -655,14 +659,17 @@ def quilt_descent_lookup(
             f"tables must be two equal non-empty (B, L), got "
             f"{tuple(table_cfg.shape)} and {tuple(table_node.shape)}"
         )
+    B, L = table_cfg.shape
+    if inv is not None and inv.shape != (B, 1 << cum.shape[0]):
+        raise ValueError(f"inv must be (B, 2^d) = {(B, 1 << cum.shape[0])}, got {tuple(inv.shape)}")
     outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
     if n == 0:
         return tuple(outs)
     lib = _lookup_library()
-    B, L = table_cfg.shape
     rc = lib.qkg_quilt_descent_lookup(
         _build.device_index(dev), u.data_ptr(), cum.data_ptr(), cum.shape[0],
-        kb.data_ptr(), lb.data_ptr(), table_cfg.data_ptr(), table_node.data_ptr(), B, L, n,
+        kb.data_ptr(), lb.data_ptr(), table_cfg.data_ptr(), table_node.data_ptr(),
+        None if inv is None else inv.data_ptr(), B, L, n,
         *(o.data_ptr() for o in outs), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "quilt_descent_lookup")

@@ -16,12 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_reference import ref  # noqa: F401  (fixture)
+from test_torch_reference import cuda_device, ref  # noqa: F401  (fixtures)
 
 from repro_torch import interop
 from repro_torch.api import KPGMSampler, MAGMSampler, SamplerConfig
 from repro_torch.configs import magm_paper
 from repro_torch.core import balldrop, kpgm, kron, magm, prng, quilt
+from repro_torch.kernels import ops
+from repro_torch.kernels import quadrant_descent as qd
 
 LG = 10
 
@@ -258,6 +260,87 @@ def test_balldrop_sample_host_matches_reference(ref, bd_ref, plans, target):
     want = rbd._balldrop_sample_host(jax.random.PRNGKey(5), rp, **kw)
     got = balldrop._balldrop_sample_host(prng.PRNGKey(5), pp, **kw)
     assert got.dtype == np.int64 and np.array_equal(want, got)
+
+
+def _paper_plan(lg, device="cpu"):
+    """The plan of the default session at the paper's setting (THETA_1,
+    mu = 0.5, d = lg), attributes from key 0."""
+    params = magm.make_params(magm_paper.THETA_1, magm_paper.DEFAULT_MU, lg)
+    cfg = SamplerConfig(params=params, num_nodes=1 << lg, attribute_key=prng.PRNGKey(0), device=device)
+    return MAGMSampler(cfg).plan
+
+
+@pytest.mark.parametrize("lg", [12, 16])
+def test_dense_inverse_equals_table_lookup(lg):
+    """The precondition of quilt_descent_lookup's inverse arm: for every
+    block b in [-1, B] and every config x in [0, 2^d), inv[b, x] (-1 for b
+    outside [0, B)) equals the plain version's sorted-table lookup."""
+    plan = _paper_plan(lg)
+    x = torch.arange(1 << plan.d, dtype=torch.int64)
+    for b in range(-1, plan.B + 1):
+        want = qd._lookup(plan.table_cfg, plan.table_node, torch.full_like(x, b), x)
+        got = plan.inv[b] if 0 <= b < plan.B else torch.full_like(want, -1)
+        assert torch.equal(got, want), b
+    assert torch.equal(plan.inv[plan.inv >= 0].sort().values, torch.arange(plan.n, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("lg", [12, 16])
+def test_plan_cum_is_the_edge_batch_table(lg):
+    """The host loop descends with plan.cum where the reference's proposal
+    step calls sample_edge_batch: the two level tables are equal bit for
+    bit, and so are the descents of one draw."""
+    plan = _paper_plan(lg)
+    table = kpgm._level_cumprobs(torch.as_tensor(plan.thetas, dtype=torch.float32).cpu())
+    assert torch.equal(plan.cum.view(torch.int32), table.view(torch.int32))
+    key = prng.PRNGKey(lg)
+    got = kpgm.descend_draw(key, plan.cum, 5000)
+    want = kpgm.sample_edge_batch(key, plan.thetas, 5000, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("chunk_elems", [7 * 11, 1 << 26], ids=["ragged", "whole"])
+def test_propose_host_matches_reference(ref, bd_ref, plans, monkeypatch, chunk_elems):
+    """One host-loop proposal batch (the threefry descent and the ranks
+    through quilt_descent_lookup) against the reference's, which looks the
+    blocks up on the host: the accepted node pairs in proposal order, and
+    the accepted count before each cut.  Draw chunks of 7 rows end
+    mid-batch; quadrant_descent is no longer on this path."""
+    import jax
+
+    rbd, _ = bd_ref
+    rp, pp = plans
+
+    def _no_descent(*args):
+        raise AssertionError("the host loop ran quadrant_descent")
+
+    monkeypatch.setattr(kpgm, "DRAW_CHUNK_ELEMS", chunk_elems)
+    monkeypatch.setattr(qd, "quadrant_descent", _no_descent)
+    ask = 3001
+    sn, dn = rbd._propose_host(jax.random.PRNGKey(12), rp, ask)
+    ok = (sn >= 0) & (dn >= 0)
+    cuts = np.array([0, 1, 1000, 2999, ask])
+    flat, before = balldrop._propose_host(prng.PRNGKey(12), pp, ask, cuts=cuts)
+    assert flat.dtype == np.int64 and 0 < flat.size < ask
+    assert np.array_equal(flat, sn[ok] * pp.n + dn[ok])
+    assert np.array_equal(before, np.concatenate([[0], np.cumsum(ok)])[cuts])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["inverse", "search"])
+def test_cuda_balldrop_sample_host_equals_cpu(cuda_device, arm):
+    """The host loop at n = 2^12 on the card (quilt_descent_lookup through
+    the dense inverse, or searching the tables) equals the CPU's."""
+    plans = [_paper_plan(12, dev) for dev in (cuda_device, "cpu")]
+    if arm == "search":
+        plans[0] = plans[0]._replace(inv=None)
+    kw = dict(target=20_000, max_rounds=4, oversample=1.05)
+    launches = ops.kernel_launches()
+    got = balldrop._balldrop_sample_host(prng.PRNGKey(5), plans[0], **kw)
+    after = ops.kernel_launches()
+    want = balldrop._balldrop_sample_host(prng.PRNGKey(5), plans[1], **kw)
+    assert np.array_equal(got, want) and got.shape[0] == 20_000
+    assert after["quilt_descent_lookup"] > launches["quilt_descent_lookup"]
+    assert after["quadrant_descent"] == launches["quadrant_descent"]
 
 
 def test_balldrop_run_rejects(plans):

@@ -524,6 +524,9 @@ def test_uniforms_wrappers_run_plain_on_cpu_and_raise_elsewhere():
     got = qd.quilt_descent_lookup(u, cum, torch.from_numpy(kb), torch.from_numpy(lb), *tables)
     want = qd.quilt_descent_lookup_plain(u, cum, torch.from_numpy(kb), torch.from_numpy(lb), *tables)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    inv = torch.from_numpy(partition.dense_inverse(part, 5))
+    got = qd.quilt_descent_lookup(u, cum, torch.from_numpy(kb), torch.from_numpy(lb), *tables, inv)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert ops.kernel_launches() == before
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -550,21 +553,48 @@ def test_cuda_quadrant_descent_equals_plain(cuda_device, n, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ranks", ["random", "contiguous"])
+@pytest.mark.parametrize("arm", ["search", "inverse"])
 @pytest.mark.parametrize("n_nodes, d", [(300, 10), (30_000, 15)], ids=["smem", "global"])
-def test_cuda_quilt_descent_lookup_equals_plain(cuda_device, n_nodes, d):
-    part, tab, kb, lb = _lookup_case(d, n_nodes, 100_003, seed=d)
+def test_cuda_quilt_descent_lookup_equals_plain(cuda_device, n_nodes, d, arm, ranks):
+    """Both arms of the kernel (the dense inverse's gather, the tables'
+    search) against the plain version, which searches the tables: a ragged
+    row count, rows on the thresholds, block ids outside [0, B), and block
+    ids at random (ball dropping) or grouped by graph (the quilt host
+    path)."""
+    rows = 100_003
+    part, tab, kb, lb = _lookup_case(d, n_nodes, rows, seed=d)
+    if ranks == "contiguous":
+        g = np.sort(np.random.default_rng(d).integers(0, part.B * part.B, rows)).astype(np.int32)
+        kb, lb = g // part.B, g % part.B
     cum = kpgm._level_cumprobs(torch.from_numpy(_batch_thetas(d, 7))).to(cuda_device)
-    u = _uniforms(100_003, d, 3, cum.cpu()).to(cuda_device)
+    u = _uniforms(rows, d, 3, cum.cpu()).to(cuda_device)
     args = [torch.from_numpy(x).to(cuda_device) for x in (kb, lb, tab.configs, tab.nodes)]
     args[1][:7] = part.B  # rows outside the tables miss
+    args[0][7:9] = -1
+    inv = torch.from_numpy(partition.dense_inverse(part, d)).to(cuda_device) if arm == "inverse" else None
     before = qd.LOOKUP_LAUNCHES
-    got = qd.quilt_descent_lookup(u, cum, *args)
+    got = qd.quilt_descent_lookup(u, cum, *args, inv)
     torch.cuda.synchronize()
     assert qd.LOOKUP_LAUNCHES == before + 1
     want = qd.quilt_descent_lookup_plain(u, cum, *args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert (got[3][:7] == -1).all()
+    assert (got[3][:7] == -1).all() and (got[2][7:9] == -1).all()
+    assert (got[2] >= 0).any()
     assert qd.descent_tables_in_shared_memory(d, args[2]) == (n_nodes == 300)
+
+
+@pytest.mark.cuda
+def test_cuda_quilt_descent_lookup_rejects_bad_inverse(cuda_device):
+    part, tab, kb, lb = _lookup_case(10, 300, 1000, seed=1)
+    cum = kpgm._level_cumprobs(torch.from_numpy(_batch_thetas(10, 7))).to(cuda_device)
+    u = _uniforms(1000, 10, 3).to(cuda_device)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (kb, lb, tab.configs, tab.nodes)]
+    inv = torch.from_numpy(partition.dense_inverse(part, 10)).to(cuda_device)
+    with pytest.raises(ValueError, match="inv must be"):
+        qd.quilt_descent_lookup(u, cum, *args, inv[:, :512].contiguous())
+    with pytest.raises(TypeError, match="inv must be contiguous int32"):
+        qd.quilt_descent_lookup(u, cum, *args, inv.long())
 
 
 @pytest.mark.cuda
