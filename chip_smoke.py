@@ -54,9 +54,21 @@ launch counts set to 0 just before and read just after:
   the host and deduped there; no quadrant_descent), and the card against
   the CPU at n = 2^12 in every mode and lookup arm, the host loop in both
   arms of quilt_descent_lookup;
+- the section-5 split (split=True) at n = 2^15, THETA_1, mu = 0.5 (B' = 3:
+  a 9-graph light quilt through quilt_prng_descent_lookup, 92.5 K heavy
+  proposals) and mu = 0.8 (B' = 1: ~24 M heavy proposals): plan, gates (the
+  count within 4 sigma of sum Q, the heavy part's within 4 sigma of
+  heavy_mean), timings by stage, the idle share, and the kernel against its
+  plain version on the light plan's round; the split (three configurations,
+  the host-binomial fallback, quilt_sample_fast(seed=)), sample_batch(4) of
+  MAGM and KPGM sessions and sample_stream of the default, split and KPGM
+  sessions on the card against the CPU at n = 2^12; sample_batch(4) at
+  n = 2^15 (as configured, and fused with backend="device"), KPGM d = 16
+  sample_batch(4) and the n = 2^15 stream in chunks of 2^16;
 - the 3-sigma validation suite on the card: THETA_2, n = 2^12, 16 seeds of
-  each of "auto", "host" and "balldrop", every pair and each against the
-  closed-form moments, no failed claim.
+  each of "auto", "host", "balldrop" and "split", every pair of backends and
+  auto against split, and each against the closed-form moments, no failed
+  claim.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  Output, last three lines: the card's name and power limit as
@@ -75,6 +87,11 @@ be compared in one call.
 builds the kernels and runs quilt_descent_lookup's checks and timings alone
 (both arms against the plain version at n = 2^16 and 2^12, timed at the
 main-path shape with random and graph-contiguous block ids).
+
+    python3 chip_smoke.py --split
+
+builds the kernels and runs the split, batch and stream phases and the
+3-sigma suite alone.
 """
 
 from __future__ import annotations
@@ -124,6 +141,8 @@ UNIFORM_D = 16
 LAW_D = 6  # the descent laws over all 4^6 cells
 LAW_SLOTS = 1 << 24
 SUITE_SEEDS = 16  # the 3-sigma suite's seeds per backend on the card
+SPLIT_MUS = (0.5, 0.8)  # the split at n = 2^15: B' = 3 with ~92.5 K heavy proposals; B' = 1, ~24 M
+KPGM_BATCH_D = 16  # KPGMSampler.sample_batch(4) at size: ~1.2 M edges a member, one fused round
 # warm repeats of the n = 2^16 quilt host session and the KPGM d = 20 host
 # loop: one keeps the whole script within half its 1200 s limit
 OLD_HOST_WARM = 1
@@ -1034,17 +1053,21 @@ def phase_host_session(device) -> dict:
     log(f"sample n=2^{HOST_LOG2_N}: edges={gs.num_edges} stats={tuple(gs.stats)} launches={launches} "
         f"counters={delta} peak_mem_bytes={peak} host_dedup_s={dedup_s} cold_ms={cold_ms}")
 
-    run = quilt.quilt_run(key, plan)  # the engine under the session, for the per-graph gate
-    if not np.array_equal(run.edges(), gs.edges):
-        raise AssertionError("the engine's run differs from the session's for the same key")
-    short = run.targets - run.counts
+    # the engine's host path under the session (quilt_run hands it the
+    # key's first split), for its own per-graph targets and counts
+    edges, _, targets, counts = quilt._quilt_sample_host(
+        prng.split(key)[0], plan, max_rounds=sampler.config.max_rounds, oversample=sampler.config.oversample
+    )
+    if not np.array_equal(edges, gs.edges):
+        raise AssertionError("the engine's host path differs from the session's for the same key")
+    short = targets - counts
     rounds_ran_out = bool((short > 0).any())
     if (short < 0).any():
         raise AssertionError("a graph holds more cells than its target")
     mean, sigma = sum_q(sampler.F, sampler.config.params.thetas, device)
     z = (gs.num_edges - mean) / sigma
-    log(f"host session gates: graphs={run.targets.size} targets_met={int((short == 0).sum())} "
-        f"max_rounds_ran_out={rounds_ran_out} shortfall={int(short.sum())} targets_sum={int(run.targets.sum())} "
+    log(f"host session gates: graphs={targets.size} targets_met={int((short == 0).sum())} "
+        f"max_rounds_ran_out={rounds_ran_out} shortfall={int(short.sum())} targets_sum={int(targets.sum())} "
         f"sum_Q={mean} sigma={sigma} z={z} (first-N-distinct law: printed, not gated)")
     if rounds_ran_out:
         log("host session: max_rounds ran out before every target was met (allowed, printed)")
@@ -1318,7 +1341,7 @@ def balldrop_stages(plan, budget: int) -> int:
     del want
     dev = scfg.device
     log_extra = 2.0 * float(np.log(float(plan.B)))
-    nb = balldrop._node_bits(plan.n)
+    nb = quilt._node_bits(plan.n)
     local = torch.zeros(scfg.numel(), dtype=torch.int64, device=dev)
     pair = snode.long() * (1 << nb) + dnode.long()
     salt = quilt.accept_salt(rkey, dev)
@@ -1487,32 +1510,330 @@ def phase_balldrop_cross_device(device) -> None:
         log(f"cross-device KPGMSampler backend=balldrop num_edges={num_edges}: edges={got.num_edges} stats={got.stats}")
 
 
+# --- the section-5 split, fused batches and streams ---
+
+
+def split_config(log2_n: int, mu: float, device, theta=THETA_1) -> SamplerConfig:
+    params = magm.make_params(theta, mu, log2_n)
+    return SamplerConfig(
+        params=params, num_nodes=1 << log2_n, attribute_key=prng.PRNGKey(SEED), split=True, device=device,
+    )
+
+
+def heavy_moments(sp: quilt.SplitPlan) -> tuple:
+    """(mean, sigma) of the heavy part's edge count: every heavy cell is an
+    independent Bernoulli(p) of its block, so the variance is the sum of
+    rows * cols * p (1 - p) over the blocks."""
+    s = sp.sizes.astype(np.float64)
+    var = float((s[:, None] * s[None, :] * sp.p_hh * (1.0 - sp.p_hh)).sum())
+    if sp.W.size:
+        var += float((s[None, :] * sp.p_wh * (1.0 - sp.p_wh)).sum() + (s[:, None] * sp.p_hw * (1.0 - sp.p_hw)).sum())
+    return sp.heavy_mean, var ** 0.5
+
+
+def split_stage_ms(sampler, key) -> dict:
+    """Host-clock ms of each stage of one warm split sample, run one by one
+    with the sample's own keys: the light quilt (round, copy, map through
+    W), the heavy round on the card, the copy of its kept pairs, the host
+    dedup of the pieces.  The heavy round's device ms by CUDA events."""
+    sp = sampler.split_plan
+    lkey, hkey = prng.split(key)
+    _, sub = prng.split(lkey)
+    out, pieces = {}, []
+
+    def clock(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t) * 1e3
+        return r
+
+    if sp.light_plan is not None:
+        ew = clock("light_quilt", lambda: quilt.quilt_run(sub, sp.light_plan).edges())
+        pieces.append(np.stack([sp.W[ew[:, 0]], sp.W[ew[:, 1]]], axis=1))
+    heavy = lambda: quilt._split_heavy_body(hkey, sp, budget=sp.heavy_budget, node_bits=quilt._node_bits(sp.n))  # noqa: E731
+    src, dst, take = clock("heavy_round", heavy)
+    pieces.append(clock("heavy_copy", lambda: torch.stack([src[take], dst[take]], 1).to(torch.int64).cpu().numpy()))
+    edges = clock("host_dedup", lambda: quilt.dedup.dedup_edges(np.concatenate(pieces, axis=0)))
+    out["heavy_round_device_ms"] = cuda_ms(heavy, reps=3)
+    # the stages are split_run's own sequence: same key, same edges
+    if not np.array_equal(edges, sampler.sample(key).edges):
+        raise AssertionError("split_stage_ms's stages give other edges than sample(key)")
+    return out
+
+
+def phase_split_full_size(device, mu: float) -> dict:
+    """The split session at n = 2^15 (THETA_1, the default session's
+    attribute key): plan, one sample with the launch counts read, its
+    gates (unique in-range edges; the count within 4 sigma of sum Q, and
+    the heavy part's within 4 sigma of heavy_mean, both exact-cell laws),
+    warm timings, a stage breakdown, the idle share, and kernel 1 against
+    its plain version on the light plan's round."""
+    t0 = time.perf_counter()
+    sampler = MAGMSampler(split_config(FULL_LOG2_N, mu, device))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sp, lp = sampler.split_plan, sampler.split_plan.light_plan
+    n = sampler.n
+    M = 0 if sp.blk_rows is None else sp.blk_rows.numel()
+    light = "none" if lp is None else f"B={lp.B} graphs={lp.num_graphs} budget={quilt._exact_budget(lp.p_max, lp.mean_edges)}"
+    log(f"split plan n=2^{FULL_LOG2_N} mu={mu}: build_s={build_s} bprime={sp.bprime} R={sp.R} |W|={sp.W.size} "
+        f"M={M} heavy_budget={sp.heavy_budget} heavy_mean={sp.heavy_mean} light {light}")
+    if sp.heavy_budget is None or sp.heavy_budget == 0:
+        raise AssertionError("the full-size split has no device heavy round")
+
+    key = prng.PRNGKey(SEED + 200)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    gs = sampler.sample(key)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t) * 1e3
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if lp is not None and launches["quilt_prng_descent_lookup"] < 1:
+        raise AssertionError("the split's light quilt did not launch quilt_prng_descent_lookup")
+    check_edges(gs.edges, n, f"split n=2^{FULL_LOG2_N} mu={mu}")
+    if gs.num_edges != gs.stats.kept_edges or gs.stats.heavy_groups != sp.R:
+        raise AssertionError(f"edges {gs.edges.shape} vs stats {gs.stats}")
+    mean, sigma = sum_q(sampler.F, sampler.config.params.thetas, device)
+    is_heavy = np.ones(n, dtype=bool)
+    is_heavy[sp.W] = False
+    heavy_edges = int((is_heavy[gs.edges[:, 0]] | is_heavy[gs.edges[:, 1]]).sum())
+    hmean, hsigma = heavy_moments(sp)
+    z, zh = (gs.num_edges - mean) / sigma, (heavy_edges - hmean) / hsigma
+    log(f"split sample n=2^{FULL_LOG2_N} mu={mu}: edges={gs.num_edges} stats={tuple(gs.stats)} launches={launches} "
+        f"peak_mem_bytes={peak} cold_ms={cold_ms} sum_Q={mean} sigma={sigma} z={z} heavy_edges={heavy_edges} "
+        f"heavy_mean={hmean} heavy_sigma={hsigma} z_heavy={zh}")
+    if abs(z) > 4 or abs(zh) > 4:
+        raise AssertionError(f"split counts outside 4 sigma: z={z} z_heavy={zh}")
+
+    walls = timed_runs(sampler.sample, [prng.PRNGKey(SEED + 201 + i) for i in range(3)])
+    stages = split_stage_ms(sampler, prng.PRNGKey(SEED + 201))
+    _, wall, busy, top = profiled_call(lambda: sampler.sample(prng.PRNGKey(SEED + 204)))
+    log(f"timing split n=2^{FULL_LOG2_N} mu={mu}: ms_warm={walls} ms_median={statistics.median(walls)} "
+        f"stage_ms={json.dumps(stages)} profiled_run wall_ms={wall} device_busy_ms={busy} "
+        f"device_idle_share={1 - busy / wall} top_device_ops={top}")
+
+    err = 0
+    if lp is not None:
+        # the light quilt's round: split_run hands quilt_run the second split
+        _, sub = prng.split(prng.split(key)[0])
+        args, kw = round_inputs(lp, sub)
+        got = qd.quilt_prng_descent_lookup(*args, **kw)
+        want = qd.quilt_prng_descent_lookup_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"kernel != plain on the split's light plan (mu={mu})")
+            err = max(err, int((g.long() - w.long()).abs().max()))
+        rows = got[0].numel()
+        k_ms = cuda_ms(lambda: qd.quilt_prng_descent_lookup(*args, **kw), reps=20)
+        bound, bound_by = kernel_bound_ms(lp, rows)
+        log(f"kernel == plain: split light plan n=2^{FULL_LOG2_N} mu={mu} rows={rows} B={lp.B} "
+            f"kernel_ms={k_ms} bound_ms={bound} ({bound_by})")
+    return {"launches": launches["quilt_prng_descent_lookup"], "max_abs_err": err}
+
+
+def same_chunks(what: str, got, want) -> int:
+    if len(got) != len(want) or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: the card's chunks differ from the CPU's")
+    return len(got)
+
+
+def phase_split_cross_device(device) -> None:
+    """The split, the shims, batches and streams at n = 2^12 (d = 12) on
+    the card and on the CPU, same inputs and keys: equal edges and stats,
+    member by member and chunk by chunk."""
+    key = prng.PRNGKey(SEED + 210)
+    for theta, name, mu in ((THETA_1, "THETA_1", 0.5), (THETA_1, "THETA_1", 0.8), (THETA_2, "THETA_2", 0.5)):
+        cfg = split_config(CHECK_LOG2_N, mu, device, theta)
+        cuda_s, cpu_s = MAGMSampler(cfg), MAGMSampler(cfg.replace(device="cpu"))
+        ops.reset_kernel_launches()
+        got = cuda_s.sample(key)
+        launches = ops.kernel_launches()["quilt_prng_descent_lookup"]
+        same_sample(f"split {name} mu={mu}", got, cpu_s.sample(key))
+        if cuda_s.split_plan.light_plan is not None and launches < 1:
+            raise AssertionError(f"split {name} mu={mu}: no launch of quilt_prng_descent_lookup")
+        fb = [quilt.split_run(key, s.split_plan._replace(heavy_budget=None))[0] for s in (cuda_s, cpu_s)]
+        if not np.array_equal(*fb):
+            raise AssertionError(f"split {name} mu={mu}, heavy_budget=None: the card's edges differ from the CPU's")
+        log(f"cross-device split {name} mu={mu} n=2^{CHECK_LOG2_N}: edges={got.num_edges} stats={tuple(got.stats)} "
+            f"kernel launches={launches} host_binomials_edges={fb[0].shape[0]}")
+    params = magm.make_params(THETA_2, DEFAULT_MU, CHECK_LOG2_N)
+    F = cpu_s.F
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        got, want = (quilt.quilt_sample_fast(key, params, F, seed=7, return_stats=True, device=d) for d in (device, "cpu"))
+    if not np.array_equal(got[0], want[0]) or tuple(got[1]) != tuple(want[1]):
+        raise AssertionError("quilt_sample_fast(seed=): the card's edges differ from the CPU's")
+    log(f"cross-device quilt_sample_fast(seed=7) n=2^{CHECK_LOG2_N}: edges={got[0].shape[0]}")
+
+    kcfg = SamplerConfig(params=kpgm.make_params(THETA_1, CHECK_LOG2_N))
+    for name, cuda_s, cpu_s in (
+        ("MAGM", MAGMSampler(paper_config(CHECK_LOG2_N, device)), MAGMSampler(paper_config(CHECK_LOG2_N, "cpu"))),
+        ("KPGM", KPGMSampler(kcfg.replace(device=device)), KPGMSampler(kcfg.replace(device="cpu"))),
+    ):
+        ops.reset_kernel_launches()
+        got = cuda_s.sample_batch(4, key)
+        launches = ops.kernel_launches()["quilt_prng_descent_lookup"]
+        want = cpu_s.sample_batch(4, key)
+        for s, (g, w) in enumerate(zip(got, want)):
+            same_sample(f"{name} sample_batch(4) member {s}", g, w)
+        if launches != 1 or any(g.key is not None for g in got):
+            raise AssertionError(f"{name} sample_batch(4) was not one fused round: {launches} launches")
+        log(f"cross-device {name} sample_batch(4) n=2^{CHECK_LOG2_N}: fused, launches={launches} "
+            f"edges={[g.num_edges for g in got]}")
+    streams = (
+        ("default", MAGMSampler(paper_config(CHECK_LOG2_N, device)), MAGMSampler(paper_config(CHECK_LOG2_N, "cpu"))),
+        ("split", MAGMSampler(split_config(CHECK_LOG2_N, 0.5, device)), MAGMSampler(split_config(CHECK_LOG2_N, 0.5, "cpu"))),
+        ("KPGM", KPGMSampler(kcfg.replace(device=device)), KPGMSampler(kcfg.replace(device="cpu"))),
+    )
+    for name, cuda_s, cpu_s in streams:
+        chunks = same_chunks(
+            f"{name} sample_stream", list(cuda_s.sample_stream(key, chunk_edges=5000)),
+            list(cpu_s.sample_stream(key, chunk_edges=5000)),
+        )
+        log(f"cross-device {name} sample_stream(chunk_edges=5000) n=2^{CHECK_LOG2_N}: chunks={chunks}")
+
+
+def fused_round_vs_plain(plan: quilt.QuiltPlan, key, run: quilt.QuiltRun, what: str) -> int:
+    """Kernel 1 against its plain version on a fused run's last round, as
+    quilt_run passes it: graphs 0 .. S * B^2 - 1 (graph s * B^2 + g' is
+    block pair g' of sample s), the run's cumulative slots a graph, the
+    round key of quilt_run's second split.  torch.equal on all four
+    outputs; returns the max abs difference (0)."""
+    key, _ = prng.split(key)
+    _, rkey = prng.split(key)
+    gids = torch.arange(run.num_samples * plan.num_graphs, dtype=torch.int32, device=plan.device)
+    args = (ops.counter_seed(rkey), gids, plan.cum, plan.table_cfg, plan.table_node)
+    kw = dict(a_tot=run.slots_per_graph, num_blocks=plan.B)
+    got = qd.quilt_prng_descent_lookup(*args, **kw)
+    want = qd.quilt_prng_descent_lookup_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"kernel != plain on the fused round of {what}")
+        err = max(err, int((g.long() - w.long()).abs().max()))
+    log(f"kernel == plain: fused round of {what}: graphs={gids.numel()} slots_per_graph={run.slots_per_graph} "
+        f"rows={got[0].numel()} B={plan.B}")
+    del got, want
+    return err
+
+
+def phase_fused_at_size(device, sampler) -> dict:
+    """Batches and the stream at size: MAGMSampler(n = 2^15).sample_batch(4)
+    as configured (4 x 49 graphs pass the candidate cap in the exact and
+    the ranked round, so it draws sample(fold_in(key, s)) four times; the
+    path taken is logged) and with backend="device" (one fused ranked round of 4 x 49 graphs; every
+    graph's distinct count against its drawn target), KPGMSampler(d =
+    16).sample_batch(4) (fused), and sample_stream(chunk_edges=2^16) of the
+    n = 2^15 session against sample(key)."""
+    key = prng.PRNGKey(SEED + 220)
+    before = dict(quilt.DISPATCH_COUNTERS)
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    batch = sampler.sample_batch(4, key)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t) * 1e3
+    launches, delta = ops.kernel_launches()["quilt_prng_descent_lookup"], counters_delta(before)
+    if launches < 1:
+        raise AssertionError(f"n=2^{FULL_LOG2_N} sample_batch(4) launched no quilt_prng_descent_lookup")
+    for g in batch:
+        check_edges(g.edges, sampler.n, "sample_batch member")
+    path = "fused" if batch[0].key is None else "per-sample loop"
+    log(f"sample_batch(4) n=2^{FULL_LOG2_N} backend=auto: {path}, launches={launches} counters={delta} "
+        f"ms={loop_ms} edges={[g.num_edges for g in batch]}")
+
+    fused = MAGMSampler(sampler.config.replace(F=sampler.F, backend="device"))
+    before = dict(quilt.DISPATCH_COUNTERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    batch = fused.sample_batch(4, key)
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t) * 1e3
+    launches, delta = ops.kernel_launches()["quilt_prng_descent_lookup"], counters_delta(before)
+    peak = torch.cuda.max_memory_allocated()
+    if delta["exact_fallbacks"] != 1 or launches < 1 or any(g.key is not None for g in batch):
+        raise AssertionError(f"backend=device sample_batch(4) was not fused ranked: {launches} {delta}")
+    for g in batch:
+        check_edges(g.edges, sampler.n, "fused batch member")
+    run = quilt.quilt_run(key, fused.plan, num_samples=4, backend="device")
+    if not all(np.array_equal(e, g.edges) for e, g in zip(run.edges_per_sample(), batch)):
+        raise AssertionError("the engine's fused run differs from sample_batch for the same key")
+    short = run.targets - run.counts
+    if (short < 0).any():
+        raise AssertionError("a graph of the fused batch holds more cells than its target")
+    err = fused_round_vs_plain(fused.plan, key, run, f"MAGM n=2^{FULL_LOG2_N} sample_batch(4) backend=device")
+    log(f"sample_batch(4) n=2^{FULL_LOG2_N} backend=device: fused ranked, graphs={run.targets.size} "
+        f"slots_per_graph={run.slots_per_graph} targets_met={int((short == 0).sum())} shortfall={int(short.sum())} "
+        f"launches={launches} counters={delta} ms={fused_ms} peak_mem_bytes={peak} edges={[g.num_edges for g in batch]}")
+    if (short > 0).any():
+        log("fused batch: max_rounds or the cap ran out before every target was met (allowed, printed)")
+
+    ks = KPGMSampler(SamplerConfig(params=kpgm.make_params(THETA_1, KPGM_BATCH_D), device=device))
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    kb = ks.sample_batch(4, key)
+    torch.cuda.synchronize()
+    k_ms = (time.perf_counter() - t) * 1e3
+    k_launches = ops.kernel_launches()["quilt_prng_descent_lookup"]
+    for g in kb:
+        check_edges(g.edges, ks.n, "KPGM batch member")
+    if k_launches < 1 or any(g.stats.sampled_edges != g.stats.target_edges for g in kb):
+        raise AssertionError(f"KPGM d={KPGM_BATCH_D} sample_batch(4): launches={k_launches} stats={[g.stats for g in kb]}")
+    krun = quilt.quilt_run(key, ks.plan, num_samples=4, exact_cells=False)
+    if not all(np.array_equal(e, g.edges) for e, g in zip(krun.edges_per_sample(), kb)):
+        raise AssertionError("the engine's fused KPGM run differs from sample_batch for the same key")
+    err = max(err, fused_round_vs_plain(ks.plan, key, krun, f"KPGM d={KPGM_BATCH_D} sample_batch(4)"))
+    del krun
+    log(f"KPGM d={KPGM_BATCH_D} sample_batch(4): fused, launches={k_launches} ms={k_ms} "
+        f"edges={[g.num_edges for g in kb]} (each equal to its target)")
+
+    t = time.perf_counter()
+    chunks = list(sampler.sample_stream(key, chunk_edges=1 << 16))
+    stream_ms = (time.perf_counter() - t) * 1e3
+    whole = sampler.sample(key).edges
+    if not np.array_equal(np.concatenate(chunks), whole) or any(c.shape[0] != 1 << 16 for c in chunks[:-1]):
+        raise AssertionError("sample_stream's chunks do not concatenate to sample(key).edges")
+    log(f"sample_stream(chunk_edges=2^16) n=2^{FULL_LOG2_N}: chunks={len(chunks)} edges={whole.shape[0]} ms={stream_ms}")
+    return {"fused_launches": launches, "max_abs_err": err}
+
+
 def phase_validation_suite(device) -> None:
     """The 3-sigma suite on the card at the reference's setting (THETA_2,
-    n = 2^12, d = 12, mu = 0.5): SUITE_SEEDS samples of each backend, every
-    pair compared, each against the closed-form moments, and the per-cell
-    block z of the exact laws ("auto", "balldrop"); no claim may fail."""
+    n = 2^12, d = 12, mu = 0.5): SUITE_SEEDS samples of each backend and of
+    the split sampler ("split", split=True), every pair of backends and auto
+    against split compared, each against the closed-form moments, and the
+    per-cell block z of the exact laws ("auto", "balldrop", "split"), all
+    over the blocks of the full quilt plan; no claim may fail."""
     params = magm.make_params(THETA_2, DEFAULT_MU, CHECK_LOG2_N)
     F = magm.sample_attributes(prng.PRNGKey(SEED + 170), 1 << CHECK_LOG2_N, params.mu, device=device).cpu().numpy()
     theory = validate.theory_moments(F, params.thetas.numpy())
     bins = validate.degree_bin_edges(1 << CHECK_LOG2_N)
-    stats, ranks, secs = {}, None, {}
-    for b in ("auto", "host", "balldrop"):
-        s = MAGMSampler(SamplerConfig(params=params, F=F, backend=b, device=device))
-        ranks = s.plan.part.ranks
+    stats, secs = {}, {}
+    ranks = quilt.build_quilt_plan(F, params.thetas, device=device).part.ranks
+    for b in ("auto", "host", "balldrop", "split"):
+        change = {"split": True} if b == "split" else {"backend": b}
+        s = MAGMSampler(SamplerConfig(params=params, F=F, device=device, **change))
         t = time.perf_counter()
         stats[b] = validate.collect(b, lambda k: s.sample(prng.PRNGKey(1000 + k)).edges, range(SUITE_SEEDS),
                                     1 << CHECK_LOG2_N, ranks, bins)
         secs[b] = time.perf_counter() - t
     claims = []
-    for a, b in (("auto", "host"), ("auto", "balldrop"), ("host", "balldrop")):
+    for a, b in (("auto", "host"), ("auto", "balldrop"), ("host", "balldrop"), ("auto", "split")):
         claims += validate.compare_backends(stats[a], stats[b], nsigma=3.0)
     for b in stats:
         claims += validate.compare_to_theory(stats[b], theory, nsigma=3.0)
     for c in claims:
         log(f"  claim {c.name}: delta={c.delta} bound={c.bound} ok={c.ok}")
     zmax = {}
-    for b in ("auto", "balldrop"):
+    for b in ("auto", "balldrop", "split"):
         se = np.sqrt((theory.block_std**2 + np.abs(theory.block_mean) + 1.0) / SUITE_SEEDS)
         zmax[b] = float(np.abs((stats[b].blocks.mean(axis=0) - theory.block_mean) / se).max())
     failed = validate.failures(claims)
@@ -1521,6 +1842,29 @@ def phase_validation_suite(device) -> None:
         + f" per_cell_max_abs_z={json.dumps(zmax)} seconds={json.dumps(secs)}")
     if failed or max(zmax.values()) > 3.0:
         raise AssertionError(f"3-sigma suite: failed claims {failed}, per-cell z {zmax}")
+
+
+def phase_split_and_batches(device, sampler) -> dict:
+    """The split at n = 2^15 for each of SPLIT_MUS, the card against the
+    CPU at n = 2^12, and the batches and stream at size (``sampler``: the
+    n = 2^15 default session); logs each phase's seconds."""
+    secs, out = {}, {"max_abs_err": 0, "launches": {}}
+    for mu in SPLIT_MUS:
+        t = time.perf_counter()
+        r = phase_split_full_size(device, mu)
+        secs[f"split_mu{mu}"] = time.perf_counter() - t
+        out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
+        out["launches"][f"split_mu{mu}"] = r["launches"]
+    t = time.perf_counter()
+    phase_split_cross_device(device)
+    secs["split_cross_device"] = time.perf_counter() - t
+    t = time.perf_counter()
+    r = phase_fused_at_size(device, sampler)
+    out["launches"]["fused_batch"] = r["fused_launches"]
+    out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
+    secs["batches_and_stream"] = time.perf_counter() - t
+    log(f"split and batch phases: seconds={json.dumps(secs)} quilt_prng_descent_lookup launches={json.dumps(out['launches'])}")
+    return out
 
 
 def main(argv) -> int:
@@ -1544,6 +1888,14 @@ def main(argv) -> int:
         log(nvidia_smi())
         log(json.dumps({"quilt_descent_lookup": lookup}))
         return 0
+    if argv == ["--split"]:
+        split = phase_split_and_batches(device, MAGMSampler(paper_config(FULL_LOG2_N, device)))
+        t = time.perf_counter()
+        phase_validation_suite(device)
+        log(f"3-sigma suite seconds={time.perf_counter() - t}")
+        log(nvidia_smi())
+        log(json.dumps({"split": split}))
+        return 0
     check = phase_kernel_vs_plain(device)
     tiles = phase_tiles_vs_plain(device)
     descent = phase_descent_prng(device)
@@ -1563,6 +1915,7 @@ def main(argv) -> int:
     bd_launches, bd_err = phase_balldrop_full_size(device)
     bd_host_launches = phase_balldrop_host(device)
     phase_balldrop_cross_device(device)
+    split = phase_split_and_batches(device, sampler)
     phase_validation_suite(device)
     log(f"balldrop launches: n=2^{FULL_LOG2_N} {bd_launches} n=2^{HOST_LOG2_N} {bd_host_launches}")
 
@@ -1573,7 +1926,7 @@ def main(argv) -> int:
             "source": "src/repro_torch/csrc/quilt_prng_descent_lookup.cu",
             "replaces": "src/repro/kernels/quadrant_descent.py:516",
             "launches": full["launches"],
-            "max_abs_err": max(check["max_abs_err"], bd_err),
+            "max_abs_err": max(check["max_abs_err"], bd_err, split["max_abs_err"]),
             "ms": full["ms"],
             "plain_ms": full["plain_ms"],
             "bound_ms": full["bound_ms"],

@@ -28,8 +28,10 @@ class SamplerConfig:
     lookup through its kernel wrapper, False asks for the plain PyTorch
     version.  ``device`` is where the session runs (default ``"cuda"``; a
     session raises when no card is present).  The other fields mean what
-    they mean in the reference; the paths this port does not run yet
-    (``mesh``, ``split``) make the session raise ``NotImplementedError``.
+    they mean in the reference (``split=True`` is the section-5 split
+    sampler, ``bprime`` its light-part cap); ``mesh``, which this port does
+    not run yet (ROADMAP queue 1 item 7), makes the session raise
+    ``NotImplementedError``.
     """
 
     params: Any

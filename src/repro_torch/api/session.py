@@ -2,37 +2,48 @@
 times.
 
 A session resolves a frozen :class:`SamplerConfig` into an owned
-:class:`repro_torch.core.quilt.QuiltPlan` on its device and a key stream.
-A MAGM sample runs the quilting engine (``quilt.quilt_run``), or with
-``backend="balldrop"`` the ball-dropping engine over the same plan; a KPGM
-sample runs the engine over the B = 1 identity plan, or Algorithm 1's host
-loop where no plan is built (``backend="host"``, d > 20).
+:class:`repro_torch.core.quilt.QuiltPlan` (or, with ``split=True``, a
+:class:`repro_torch.core.quilt.SplitPlan`) on its device and a key stream.
+A MAGM sample runs the quilting engine (``quilt.quilt_run``), the section-5
+split (``quilt.split_run``), or with ``backend="balldrop"`` the
+ball-dropping engine over the same plan; a KPGM sample runs the engine
+over the B = 1 identity plan, or Algorithm 1's host loop where no plan is
+built (``backend="host"``, d > 20).
+
+``sample_stream`` emits one graph as fixed-size edge chunks, copied from
+the device round chunk by chunk; ``sample_batch`` draws several graphs
+through shared fused rounds (sample s's block pair g' is graph s * B^2 +
+g'), or one by one with ``fold_in(key, s)`` keys where a batch cannot be
+fused (the split, the host paths, a batch past the candidate cap).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.api.config import SamplerConfig
 from repro_torch.api.result import GraphSample, KPGMStats
-from repro_torch.core import kpgm, magm, prng, quilt
+from repro_torch.core import dedup, kpgm, magm, prng, quilt
 from repro_torch.core.device import resolve_device
 
 # identity plans hold the 2^d config space; past this the host loop is the
 # KPGM backend
 KPGM_PLAN_MAX_NODES = 1 << 20
 
-_STREAM = "sample_stream / sample_batch (ROADMAP queue 1: stream and batch) are not ported yet"
+_RESUME = (
+    "checkpoint_dir= / resume_stream (ROADMAP queue 1 item 7: resilience and serving) "
+    "are not ported yet"
+)
 
 
 class _Session:
     """Shared session plumbing: config checks, device, key stream."""
 
     def __init__(self, config: SamplerConfig, key: Optional[torch.Tensor]):
-        reason = quilt.unported_reason(mesh=config.mesh, split=config.split)
+        reason = quilt.unported_reason(mesh=config.mesh)
         if reason is not None:
             raise NotImplementedError(f"{reason} is not ported yet")
         self.config = config
@@ -51,18 +62,19 @@ class _Session:
     def _cast(self, edges: np.ndarray) -> np.ndarray:
         return edges.astype(self.config.dtype, copy=False)
 
-    def _run(self, key: torch.Tensor, *, targets=None, exact_cells=None) -> quilt.QuiltRun:
+    def _run(self, key: torch.Tensor, *, num_samples: int = 1, targets=None, exact_cells=None) -> quilt.QuiltRun:
         c = self.config
         return quilt.quilt_run(
-            key, self.plan, targets=targets, max_rounds=c.max_rounds, oversample=c.oversample,
-            backend=c.backend, use_kernel=c.use_kernel, exact_cells=exact_cells,
+            key, self.plan, num_samples=num_samples, targets=targets, max_rounds=c.max_rounds,
+            oversample=c.oversample, backend=c.backend, use_kernel=c.use_kernel, exact_cells=exact_cells,
         )
 
-    def sample_stream(self, *args, **kwargs):
-        raise NotImplementedError(_STREAM)
+    def _chunks(self, chunks) -> Iterator[np.ndarray]:
+        for chunk in chunks:
+            yield self._cast(chunk)
 
-    def sample_batch(self, *args, **kwargs):
-        raise NotImplementedError(_STREAM)
+    def resume_stream(self, checkpoint_dir: str):
+        raise NotImplementedError(_RESUME)
 
 
 class MAGMSampler(_Session):
@@ -76,8 +88,12 @@ class MAGMSampler(_Session):
     >>> theta = np.array([[0.3, 0.6], [0.6, 0.9]], dtype=np.float32)
     >>> cfg = SamplerConfig(params=magm.make_params(theta, 0.5, 5),
     ...                     num_nodes=24, device="cpu")
-    >>> gs = MAGMSampler(cfg).sample(prng.PRNGKey(1))
+    >>> sampler = MAGMSampler(cfg)
+    >>> gs = sampler.sample(prng.PRNGKey(1))
     >>> gs.num_edges == gs.stats.kept_edges
+    True
+    >>> chunks = list(sampler.sample_stream(prng.PRNGKey(1), chunk_edges=16))
+    >>> bool(np.array_equal(np.concatenate(chunks), gs.edges))
     True
     """
 
@@ -95,8 +111,14 @@ class MAGMSampler(_Session):
         )
         self.n = int(self.F.shape[0])
         self._check_dtype(self.n)
+        self.split_plan: Optional[quilt.SplitPlan] = None
         self.plan: Optional[quilt.QuiltPlan] = None
-        if self.F.size:
+        if self.F.size == 0:
+            return  # an empty source: every call emits nothing
+        if config.split:
+            self.split_plan = quilt.build_split_plan(self.F, params, config.bprime, device=self.device)
+            self.plan = self.split_plan.light_plan
+        else:
             self.plan = quilt.build_quilt_plan(self.F, params.thetas, device=self.device)
         if config.backend == "balldrop" and self.plan is not None and self.plan.bd_cost is None:
             # fail at session build, not on the first sample()
@@ -105,17 +127,67 @@ class MAGMSampler(_Session):
                 f"d={self.plan.d} (2^d exceeds kron.MOMENT_CAP); use backend='auto' or 'host'"
             )
 
+    def _split_sample(self, key: torch.Tensor):
+        """One section-5 draw of the owned SplitPlan: ``(edges, stats)``."""
+        c = self.config
+        return quilt.split_run(
+            key, self.split_plan, max_rounds=c.max_rounds, oversample=c.oversample,
+            backend=c.backend, use_kernel=c.use_kernel,
+        )
+
     def sample(self, key: Optional[torch.Tensor] = None) -> GraphSample:
         """Draw one MAGM graph; ``key=None`` consumes the session's stream."""
         key = self._next_key() if key is None else key
-        if self.plan is None:
+        if self.F.size == 0:
             return GraphSample(
                 np.zeros((0, 2), dtype=self.config.dtype), 0,
                 quilt.QuiltStats(0, 0, 0, 0, 0, 0, None), key,
             )
+        if self.split_plan is not None:
+            edges, stats = self._split_sample(key)
+            return GraphSample(self._cast(edges), self.n, stats, key)
         run = self._run(key, exact_cells=self.config.exact_cells)
         edges = run.edges()
         return GraphSample(self._cast(edges), self.n, run.stats(edges.shape[0]), key)
+
+    def sample_stream(
+        self, key: Optional[torch.Tensor] = None, *, chunk_edges: int = 1 << 16, checkpoint_dir: Optional[str] = None
+    ) -> Iterator[np.ndarray]:
+        """One graph as ``(chunk_edges, 2)`` chunks (the last may be
+        shorter) whose concatenation equals ``sample(key).edges``.  On the
+        quilting paths each chunk's rows are copied from the device round
+        on their own; the split re-chunks its host edge array."""
+        if checkpoint_dir is not None:
+            raise NotImplementedError(_RESUME)
+        key = self._next_key() if key is None else key
+        if self.F.size == 0:
+            return
+        if self.split_plan is not None:
+            edges, _ = self._split_sample(key)
+            chunks = dedup.rechunk_edges([edges], chunk_edges)
+        else:
+            chunks = self._run(key, exact_cells=self.config.exact_cells).iter_chunks(chunk_edges)
+        yield from self._chunks(chunks)
+
+    def sample_batch(self, num_graphs: int, key: Optional[torch.Tensor] = None) -> List[GraphSample]:
+        """``num_graphs`` independent MAGM graphs.  Without the split they
+        share fused rounds; members of a fused batch carry ``key=None``, as
+        no single key reproduces them.  The split, the host backend and a
+        batch past the candidate cap draw ``sample(fold_in(key, s))``."""
+        num_graphs = int(num_graphs)
+        key = self._next_key() if key is None else key
+        if num_graphs <= 0:
+            return []
+        if self.split_plan is None and self.F.size:
+            try:
+                run = self._run(key, num_samples=num_graphs, exact_cells=self.config.exact_cells)
+            except quilt.DeviceBatchUnavailable:
+                pass
+            else:
+                per = run.edges_per_sample()
+                stats = run.stats_per_sample([e.shape[0] for e in per])
+                return [GraphSample(self._cast(e), self.n, st, None) for e, st in zip(per, stats)]
+        return [self.sample(prng.fold_in(key, s)) for s in range(num_graphs)]
 
 
 class KPGMSampler(_Session):
@@ -156,6 +228,11 @@ class KPGMSampler(_Session):
                 "use backend='auto' or 'host'"
             )
 
+    def _exact(self) -> bool:
+        # KPGM samples keep their drawn target: the ranked rounds, unless
+        # the config asks for exact cells
+        return False if self.config.exact_cells is None else self.config.exact_cells
+
     def _host_sample(self, key, num_edges) -> GraphSample:
         edges = kpgm._kpgm_sample_host(
             key, self.params, max_rounds=self.config.max_rounds,
@@ -170,11 +247,8 @@ class KPGMSampler(_Session):
         if self.plan is None:
             return None
         targets = None if num_edges is None else np.array([num_edges])
-        # KPGM samples keep their drawn target: the ranked rounds, unless
-        # the config asks for exact cells
-        exact = False if self.config.exact_cells is None else self.config.exact_cells
         try:
-            return self._run(key, targets=targets, exact_cells=exact)
+            return self._run(key, targets=targets, exact_cells=self._exact())
         except quilt.DeviceBatchUnavailable:
             return None
 
@@ -192,3 +266,44 @@ class KPGMSampler(_Session):
             num_nodes=self.n, target_edges=int(run.targets[0]), sampled_edges=int(edges.shape[0])
         )
         return GraphSample(self._cast(edges), self.n, stats, key)
+
+    def sample_stream(
+        self,
+        key: Optional[torch.Tensor] = None,
+        *,
+        chunk_edges: int = 1 << 16,
+        num_edges: Optional[int] = None,
+        checkpoint_dir: Optional[str] = None,
+    ) -> Iterator[np.ndarray]:
+        """One KPGM graph as fixed-size chunks whose concatenation equals
+        ``sample(key, num_edges=num_edges).edges`` (see
+        :meth:`MAGMSampler.sample_stream`)."""
+        if checkpoint_dir is not None:
+            raise NotImplementedError(_RESUME)
+        key = self._next_key() if key is None else key
+        run = self._engine_run(key, num_edges)
+        if run is None:
+            chunks = dedup.rechunk_edges([self._host_sample(key, num_edges).edges], chunk_edges)
+        else:
+            chunks = run.iter_chunks(chunk_edges)
+        yield from self._chunks(chunks)
+
+    def sample_batch(self, num_graphs: int, key: Optional[torch.Tensor] = None) -> List[GraphSample]:
+        """``num_graphs`` independent KPGM graphs through shared fused
+        rounds (members carry ``key=None``), or the host loop once per
+        sample with ``fold_in(key, s)`` keys."""
+        num_graphs = int(num_graphs)
+        key = self._next_key() if key is None else key
+        if num_graphs <= 0:
+            return []
+        if self.plan is not None:
+            try:
+                run = self._run(key, num_samples=num_graphs, exact_cells=self._exact())
+            except quilt.DeviceBatchUnavailable:
+                pass
+            else:
+                return [
+                    GraphSample(self._cast(e), self.n, KPGMStats(self.n, int(run.targets[s]), e.shape[0]), None)
+                    for s, e in enumerate(run.edges_per_sample())
+                ]
+        return [self._host_sample(prng.fold_in(key, s), None) for s in range(num_graphs)]

@@ -66,10 +66,6 @@ _UNAVAILABLE = (
 )
 
 
-def _node_bits(n: int) -> int:
-    return max(int(n - 1).bit_length(), 1) if n > 1 else 1
-
-
 def _lookup_arm(plan: quilt.QuiltPlan, use_kernel: Optional[bool]) -> str:
     """The rank lookup of the device rounds: ``"kernel"`` (use_kernel None
     or True), else the dense inverse where the plan has it, else the
@@ -314,7 +310,7 @@ def balldrop_run(
     outs = None
     key, rkey = prng.split(key)
     a_tot = 0
-    nb = _node_bits(n)
+    nb = quilt._node_bits(n)
     if total > 0:
         gids = torch.arange(S, dtype=torch.int32, device=plan.device)
         tdev = torch.from_numpy(targets).to(plan.device)

@@ -19,8 +19,9 @@ stream are kept (Algorithm 1), never the smallest ids.
 
 Also the host helpers of the ranked rounds: the geometric batch-size grid
 (:func:`bucket_size`), how one batch is split across the graphs that need
-edges (:func:`plan_asks`, :func:`uniform_ask`), and the first-occurrence
-dedup of an edge array (:func:`dedup_edges`).
+edges (:func:`plan_asks`, :func:`uniform_ask`), the first-occurrence dedup
+of an edge array (:func:`dedup_edges`), and the fixed-size chunking of a
+stream of edges (:func:`rechunk_edges`, :func:`iter_edge_chunks`).
 """
 
 from __future__ import annotations
@@ -96,6 +97,57 @@ def dedup_edges(edges: np.ndarray) -> np.ndarray:
     key = (edges[:, 0] << 32) | edges[:, 1]
     _, first_idx = np.unique(key, return_index=True)
     return edges[np.sort(first_idx)]
+
+
+def rechunk_edges(pieces, chunk_edges: int):
+    """Re-chunk a stream of ``(E_i, 2)`` edge pieces into ``(chunk_edges,
+    2)`` int64 chunks; only the last may be shorter.  Empty pieces are
+    skipped and at most one chunk is buffered.
+
+    >>> pieces = [np.arange(6).reshape(3, 2), np.arange(4).reshape(2, 2)]
+    >>> [c.shape for c in rechunk_edges(pieces, 2)]
+    [(2, 2), (2, 2), (1, 2)]
+    """
+    chunk_edges = int(chunk_edges)
+    if chunk_edges <= 0:
+        raise ValueError(f"chunk_edges must be positive, got {chunk_edges}")
+    buf: list = []
+    have = 0
+    for piece in pieces:
+        p = np.asarray(piece, dtype=np.int64).reshape(-1, 2)
+        while p.shape[0]:
+            take = min(chunk_edges - have, p.shape[0])
+            buf.append(p[:take])
+            have += take
+            p = p[take:]
+            if have == chunk_edges:
+                yield np.concatenate(buf, axis=0)
+                buf, have = [], 0
+    if have:
+        yield np.concatenate(buf, axis=0)
+
+
+def iter_edge_chunks(src: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor, chunk_edges: int, tail=()):
+    """The kept ``(src, dst)`` rows of a round's candidate buffers, then the
+    ``tail`` pieces, as ``(chunk_edges, 2)`` int64 host chunks (the last may
+    be shorter).
+
+    The kept positions are found once on the buffers' device; each chunk
+    gathers its rows there and copies only those to the host, so the whole
+    edge list never sits on the host at once.
+    """
+    chunk_edges = int(chunk_edges)
+    if chunk_edges <= 0:
+        raise ValueError(f"chunk_edges must be positive, got {chunk_edges}")
+
+    def pieces():
+        idx = torch.nonzero(keep).reshape(-1)
+        for lo in range(0, idx.numel(), chunk_edges):
+            sel = idx[lo : lo + chunk_edges]
+            yield torch.stack([src[sel], dst[sel]], dim=1).to(torch.int64).cpu().numpy()
+        yield from tail
+
+    return rechunk_edges(pieces(), chunk_edges)
 
 
 def _packed_bits(node_bits: int, num_graphs: int, n: int) -> Tuple[int, int, bool]:

@@ -260,12 +260,13 @@ class _Graphs:
 
 def _graph_lookup(asks: np.ndarray, num_blocks: int, tables, device):
     """(kb, lb, table_cfg, table_node, inv) of a batch split by ``asks``
-    (``tables = (table_cfg, table_node, inv)``): row r of graph g = k * B + l
-    looks up block rows k and l."""
+    (``tables = (table_cfg, table_node, inv)``): row r of graph g looks up
+    block rows k and l of g mod B^2 = k * B + l (graph s * B^2 + g' of a
+    fused batch is block pair g' of sample s)."""
     g = torch.repeat_interleave(
         torch.arange(len(asks), dtype=torch.int32, device=device),
         torch.from_numpy(np.asarray(asks, dtype=np.int64)).to(device),
-    )
+    ) % (num_blocks * num_blocks)
     return (g // num_blocks, g % num_blocks, *tables)
 
 

@@ -123,6 +123,80 @@ def log_edge_prob(F_src: torch.Tensor, F_dst: torch.Tensor, thetas: torch.Tensor
     return bl.c0 + (fs @ bl.u)[:, None] + (ft @ bl.v)[None, :] + inter
 
 
+def _f32_sum(parts):
+    """float32 sum of ``parts`` from the left."""
+    acc = parts[0]
+    for x in parts[1:]:
+        acc = np.add(acc, x, dtype=np.float32)
+    return acc
+
+
+def _lanes_h8(a):
+    return _f32_sum([_f32_sum([_f32_sum(a[0:2]), _f32_sum(a[2:4])]), _f32_sum([_f32_sum(a[4:6]), _f32_sum(a[6:8])])])
+
+
+def _lanes_p8(a):
+    a = [a[i] for i in (0, 4, 2, 6, 1, 5, 3, 7)]
+    return _lanes_h8(a)
+
+
+def _gemv_sum(X: np.ndarray) -> np.ndarray:
+    """Row sums of the (n, d) float32 terms ``X`` in the order of the
+    reference's CPU matrix-vector product (Eigen's row-major GEMV on
+    8-float packets, as jaxlib 0.9.0 runs it on x86-64).
+
+    Lane j of a row adds terms j, j + 8, ... of its full packets from the
+    left; rows in blocks of 8 reduce the 8 lanes pairwise from lane 0, the
+    4-, 2- and 1-row blocks after them fold the upper 4 lanes onto the
+    lower ones first (((0+4)+(2+6)) + ((1+5)+(3+7))); the last d mod 8
+    terms are summed from the left on their own and added after.  A
+    single-row product is one sum from the left.
+    """
+    n, d = X.shape
+    if n == 1:
+        return _f32_sum([X[:, k] for k in range(d)]) if d else np.zeros(1, np.float32)
+    out = np.zeros(n, dtype=np.float32)
+    full = 8 * (d // 8)
+    n8 = 8 * (n // 8)
+    for lo, hi, reduce in ((0, n8, _lanes_h8), (n8, n, _lanes_p8)):
+        if hi <= lo:
+            continue
+        parts = []
+        if full:
+            parts.append(reduce([_f32_sum([X[lo:hi, j + l] for j in range(0, full, 8)]) for l in range(8)]))
+        if d > full:
+            parts.append(_f32_sum([X[lo:hi, k] for k in range(full, d)]))
+        if parts:
+            out[lo:hi] = _f32_sum(parts)
+    return out
+
+
+def host_log_edge_prob(F_src, F_dst, thetas) -> np.ndarray:
+    """(ns, nt) float32 log Q between 0/1 rows of F_src and F_dst on the
+    host, in the order the reference's eager CPU ``log_edge_prob`` sums:
+    ``((c0 + row) + col) + inter``, the row and column terms as its
+    matrix-vector products (:func:`_gemv_sum`), the interaction term from
+    attribute 0 up.
+
+    The reference's interaction product goes through XLA's thread-pool
+    contraction into oneDNN's sgemm, which for some shapes (and thread
+    counts) adds the d terms in 4-float lanes instead; there its log Q can
+    differ from this one in the last bit.  The products are exact (the
+    attributes are 0 or 1), so nothing else can differ.
+    """
+    bl = [t.cpu().numpy() for t in bilinear_decompose(thetas)]
+    c0, u, v, w = bl
+    fs = np.asarray(F_src, dtype=np.float32)
+    ft = np.asarray(F_dst, dtype=np.float32)
+    row = _gemv_sum(fs * u[None, :])
+    col = _gemv_sum(ft * v[None, :])
+    inter = np.zeros((fs.shape[0], ft.shape[0]), dtype=np.float32)
+    fsw = fs * w[None, :]
+    for k in range(fs.shape[1]):
+        inter += np.multiply.outer(fsw[:, k], ft[:, k])
+    return (c0 + row[:, None] + col[None, :]) + inter
+
+
 def edge_prob_matrix(F: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
     """Exact dense Q (paper eq. 7), O(n^2 d): tests and small n only."""
     return f32math.exp(log_edge_prob(F, F, thetas))

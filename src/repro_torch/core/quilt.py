@@ -1,4 +1,5 @@
-"""Algorithm 2 — quilting KPGM samples into a MAGM sample — on PyTorch.
+"""Algorithm 2 — quilting KPGM samples into a MAGM sample — and the
+section-5 split sampler for unbalanced attributes, on PyTorch.
 
 Quilting partitions the nodes into D_1..D_B (partition.py) and, for every
 block pair (k, l), draws candidate edges of a full KPGM graph, keeps those
@@ -29,9 +30,22 @@ the exact mode (:func:`_exact_cell_valid`), and the sort-based segmented
 dedup (``core/dedup.py``).  A host round descends threefry uniforms and
 looks them up in the kernel ``quilt_descent_lookup``, then dedupes on the
 host in arrival order.  ``backend="balldrop"`` goes to the ball-dropping
-engine (``core/balldrop.py``) over the same plan.  The section-5 split,
-meshes and fused quilting batches raise ``NotImplementedError`` naming
-their ROADMAP item.
+engine (``core/balldrop.py``) over the same plan.  ``num_samples = S > 1``
+fuses S samples into the same rounds: block pair g' of sample s is graph
+s * B^2 + g'.  Meshes raise ``NotImplementedError`` naming their ROADMAP
+item.
+
+The section-5 split (:func:`build_split_plan`, :func:`split_run`) pulls the
+configurations that occur more than B' times out into R heavy groups.  The
+light nodes W are quilted with B <= B'; every block pair that touches a
+heavy group is an Erdos-Renyi block of one scalar p, and all of them are
+realized in one fixed-shape device round (:func:`_split_heavy_body`) or,
+past the candidate cap or with an explicit numpy Generator, by host
+binomials (:func:`_sample_cells`).
+
+The free functions :func:`quilt_sample` and :func:`quilt_sample_fast` are
+the reference's deprecated shims over the sessions, kept bit-identical to
+them.
 
 :func:`naive_reference_sample` is the O(n^2) exact oracle the quilting
 sampler is tested against.
@@ -105,8 +119,9 @@ class QuiltPlan(NamedTuple):
         return self.B * self.B
 
 
-PLAN_STATS = {"partition_builds": 0, "plan_builds": 0}
+PLAN_STATS = {"partition_builds": 0, "plan_builds": 0, "plan_hits": 0}
 _PART_CACHE: "OrderedDict" = OrderedDict()
+_PLAN_CACHE: "OrderedDict" = OrderedDict()
 _KPGM_PLAN_CACHE: "OrderedDict" = OrderedDict()
 _CACHE_MAX = 8
 
@@ -128,10 +143,15 @@ _TWO_M24 = 2.0**-24
 
 
 def clear_plan_cache() -> None:
-    """Drop the content-keyed partition and identity-plan caches (plans
-    held by sessions are unaffected)."""
+    """Drop the content-keyed partition, shim-plan and identity-plan caches
+    (plans held by sessions are unaffected)."""
     _PART_CACHE.clear()
+    _PLAN_CACHE.clear()
     _KPGM_PLAN_CACHE.clear()
+
+
+def _warn_shim(old: str, new: str) -> None:
+    warnings.warn(f"{old} is deprecated; use {new}", DeprecationWarning, stacklevel=3)
 
 
 def _cache_put(cache: "OrderedDict", key, value) -> None:
@@ -232,6 +252,25 @@ def build_quilt_plan(
     else:
         state = _partition_state(F)
     return _assemble_plan(F.shape, th, state, dev)
+
+
+def get_quilt_plan(F: np.ndarray, thetas, *, device=None) -> QuiltPlan:
+    """The shims' plan of (F, thetas) on ``device``, from a content-keyed
+    cache: a repeated call returns the same plan, and new thetas over the
+    same F reuse its partition.  Sessions build and hold their own plan
+    (:func:`build_quilt_plan`)."""
+    dev = resolve_device(device)
+    F = F.cpu().numpy() if isinstance(F, torch.Tensor) else np.asarray(F)
+    th = torch.as_tensor(thetas, dtype=torch.float32).cpu()
+    pkey = (_digest(F), _digest(th.numpy()), str(dev))
+    plan = _PLAN_CACHE.get(pkey)
+    if plan is not None:
+        PLAN_STATS["plan_hits"] += 1
+        _PLAN_CACHE.move_to_end(pkey)
+        return plan
+    plan = build_quilt_plan(F, th, device=dev)
+    _cache_put(_PLAN_CACHE, pkey, plan)
+    return plan
 
 
 def build_kpgm_plan(thetas, *, device=None) -> QuiltPlan:
@@ -417,8 +456,10 @@ class QuiltRun(NamedTuple):
     ``core/balldrop.py``); the per-sample splits and stats key off it."""
 
     plan: QuiltPlan
-    # per-graph targets (the realized counts when exact; on a host run the
-    # targets the host path drew) and distinct cells taken
+    # per-graph targets (the realized counts when exact; on a quilting host
+    # run the engine's unused draw, with zero counts, as the reference has
+    # them; on a ball-dropping host run the target its loop met) and
+    # distinct cells taken
     targets: np.ndarray
     counts: np.ndarray
     snode: Optional[torch.Tensor]  # (graphs * slots,) candidate node ids, on device
@@ -464,6 +505,19 @@ class QuiltRun(NamedTuple):
         if not pieces:
             return np.zeros((0, 2), dtype=np.int64)
         return np.concatenate(pieces, axis=0)
+
+    def iter_chunks(self, chunk_edges: int):
+        """The edges of a one-sample run as ``(chunk_edges, 2)`` host chunks
+        (the last may be shorter), in :meth:`edges` order; a device run
+        copies each chunk's kept rows only (``dedup.iter_edge_chunks``)."""
+        if self.num_samples != 1:
+            raise ValueError("iter_chunks streams single-sample runs only")
+        if self.host_edges is not None:
+            return dedup.rechunk_edges([self.host_edges], chunk_edges)
+        tail = [p for _, p in self.tail]
+        if self.keep is None:
+            return dedup.rechunk_edges(tail, chunk_edges)
+        return dedup.iter_edge_chunks(self.snode, self.dnode, self.keep, chunk_edges, tail=tail)
 
     def edges_per_sample(self) -> List[np.ndarray]:
         """The kept edges split into per-sample (E_s, 2) arrays (candidates
@@ -516,15 +570,11 @@ class QuiltRun(NamedTuple):
         ]
 
 
-def unported_reason(*, mesh=None, split: bool = False, num_samples: int = 1) -> Optional[str]:
+def unported_reason(*, mesh=None) -> Optional[str]:
     """Which requested path the port does not run yet, and the ROADMAP
     queue-1 item that will port it; None for a path it runs."""
-    if split:
-        return "split=True (ROADMAP queue 1: the section-5 split)"
     if mesh is not None:
-        return "mesh= (ROADMAP queue 1: resilience and serving)"
-    if num_samples != 1:
-        return "num_samples > 1 (ROADMAP queue 1: stream and batch)"
+        return "mesh= (ROADMAP queue 1 item 7: resilience and serving)"
     return None
 
 
@@ -560,6 +610,11 @@ def quilt_run(
     the device rounds' lookup through its kernel wrapper, False through its
     plain version.
 
+    ``num_samples = S > 1`` fuses S independent samples into the same
+    rounds (graph s * B^2 + g' is block pair g' of sample s); a batch whose
+    backend decision resolves to the host raises
+    :class:`DeviceBatchUnavailable`, and callers loop over samples.
+
     ``backend="balldrop"`` runs the ball-dropping engine over the same plan
     (:func:`repro_torch.core.balldrop.balldrop_run`): one node-pair stream
     per sample, ``targets`` per sample, ``num_samples >= 1``.
@@ -571,10 +626,11 @@ def quilt_run(
             key, plan, num_samples=num_samples, targets=targets, max_rounds=max_rounds,
             oversample=oversample, use_kernel=use_kernel, mesh=mesh, exact_cells=exact_cells,
         )
-    reason = unported_reason(mesh=mesh, num_samples=num_samples)
+    reason = unported_reason(mesh=mesh)
     if reason is not None:
         raise NotImplementedError(f"{reason} is not ported yet")
-    gtot = plan.num_graphs
+    S = int(num_samples)
+    gtot = S * plan.num_graphs
     ncfg = 1 << plan.d
     targets_given = targets is not None
     use_kernel = True if use_kernel is None else bool(use_kernel)
@@ -608,15 +664,20 @@ def quilt_run(
         backend == "auto" and gtot * ask0 <= kpgm.DEVICE_MAX_CANDIDATES
     )
     if not use_device:
+        if S > 1:
+            raise DeviceBatchUnavailable(
+                f"a fused batch needs the device backend (backend={backend!r}, "
+                f"candidates={gtot * ask0})"
+            )
         if targets_given:
             raise DeviceBatchUnavailable(
                 f"targets override needs the device backend (backend={backend!r}, "
                 f"candidates={gtot * ask0})"
             )
-        edges, st, host_targets, host_counts = _quilt_sample_host(
-            key, plan, max_rounds=max_rounds, oversample=oversample
-        )
-        return QuiltRun(plan, host_targets, host_counts, None, None, None, 0, (), edges, st)
+        edges, st, _, _ = _quilt_sample_host(key, plan, max_rounds=max_rounds, oversample=oversample)
+        # the engine's own target draw and no device counts, as the
+        # reference reports them; the host path's totals are in ``st``
+        return QuiltRun(plan, targets, np.zeros(gtot, dtype=np.int64), None, None, None, 0, (), edges, st)
 
     tail: List[Tuple[int, np.ndarray]] = []
     counts = np.zeros(gtot, dtype=np.int64)
@@ -665,7 +726,39 @@ def quilt_run(
             counts = _host_quilt_topup(key, plan, targets, seen_cfg, tail, max_rounds, oversample)
     if exact:
         targets = counts.copy()
-    return QuiltRun(plan, targets, counts, snode, dnode, keep, a_tot, tuple(tail), None, None)
+    return QuiltRun(plan, targets, counts, snode, dnode, keep, a_tot, tuple(tail), None, None, S)
+
+
+def quilt_sample(
+    key: torch.Tensor,
+    params: magm.MAGMParams,
+    F,
+    *,
+    max_rounds: int = 8,
+    oversample: float = 1.05,
+    backend: str = "auto",
+    use_kernel: Optional[bool] = None,
+    mesh=None,
+    return_stats: bool = False,
+    exact_cells: Optional[bool] = None,
+    device=None,
+):
+    """Deprecated shim: one MAGM graph of the (n, d) attributes ``F`` on
+    ``device`` (default ``"cuda"``), equal to ``MAGMSampler(SamplerConfig(
+    params=params, F=F, ...)).sample(key)``, through the cached plan of
+    :func:`get_quilt_plan`.  Returns the (E, 2) edges, and the stats with
+    ``return_stats``."""
+    _warn_shim("quilt_sample", "repro_torch.api.MAGMSampler.sample")
+    F = F.cpu().numpy() if isinstance(F, torch.Tensor) else np.asarray(F)
+    if F.size == 0:
+        out = np.zeros((0, 2), dtype=np.int64)
+        return (out, QuiltStats(0, 0, 0, 0, 0, 0, None)) if return_stats else out
+    run = quilt_run(
+        key, get_quilt_plan(F, params.thetas, device=device), max_rounds=max_rounds,
+        oversample=oversample, backend=backend, use_kernel=use_kernel, mesh=mesh, exact_cells=exact_cells,
+    )
+    out = run.edges()
+    return (out, run.stats(out.shape[0])) if return_stats else out
 
 
 def _host_quilt_topup(
@@ -724,6 +817,446 @@ def _quilt_sample_host(key: torch.Tensor, plan: QuiltPlan, *, max_rounds: int, o
         bprime=None,
     )
     return out, stats, targets, counts
+
+
+# ---------------------------------------------------------------------------
+# Section 5: the split sampler for unbalanced attributes
+# ---------------------------------------------------------------------------
+
+# rounds of the sparse rows' collision redraws before the exact fallback,
+# and the cap on one dense chunk's (rows, G) key matrix (~32 MB)
+_RESAMPLE_ROUNDS = 32
+_DENSE_CHUNK_CELLS = 1 << 22
+
+
+def _node_bits(n: int) -> int:
+    """Bits that pack a node id of [0, n)."""
+    return max(int(n - 1).bit_length(), 1) if n > 1 else 1
+
+
+def choose_bprime(counts: np.ndarray, n: int, d: int, expected_e: float) -> Tuple[int, float]:
+    """The B' minimising the paper's cost T(B') = B'^2 log(n) |E| + (|W| +
+    d) R + d R^2, and that cost, over B' = 0 and the distinct
+    multiplicities ``counts`` of the configurations (T only changes
+    there); (0, 0.0) for no configurations."""
+    counts = np.sort(np.asarray(counts, dtype=np.int64).reshape(-1))
+    if counts.size == 0:
+        return 0, 0.0
+    log_n = max(np.log2(max(n, 2)), 1.0)
+    cands = np.concatenate([[0], np.unique(counts)])
+    best_bp, best_t = int(counts.max()), float("inf")
+    for bp in cands:
+        heavy = counts > bp
+        r = int(heavy.sum())
+        w = int(counts[~heavy].sum())
+        t = float(bp) ** 2 * log_n * max(expected_e, 1.0) + (w + d) * r + d * r * r
+        if t < best_t:
+            best_t, best_bp = t, int(bp)
+    return best_bp, best_t
+
+
+class SplitPlan(NamedTuple):
+    """The section-5 split of (F, thetas, B'), built by
+    :func:`build_split_plan`: the light nodes W and their quilt plan, the R
+    heavy groups, the scalar edge probabilities of every heavy block, and
+    the device state of the heavy round.
+
+    The heavy round sees every heavy unit (R^2 heavy-heavy blocks and, per
+    direction, |W| R one-node strips) as one of M uniform blocks of ``rows
+    x cols`` cells sharing one p, over the node pool ``[cat, W]``.  A block
+    is proposed with weight rows * cols * p (``blk_cumw``), so each cell is
+    proposed with p / ``heavy_mean``, and the per-block acceptance
+    ``blk_alpha`` makes each cell an edge with probability exactly p.
+    ``heavy_budget`` is the round's proposal count: None past
+    ``kpgm.DEVICE_MAX_CANDIDATES`` (the host binomials run instead), 0
+    with no heavy mass.
+    """
+
+    n: int
+    d: int
+    bprime: int
+    W: np.ndarray  # light node ids
+    heavy_cfgs: np.ndarray  # (R,) heavy configurations
+    sizes: np.ndarray  # (R,) heavy group sizes
+    offs: np.ndarray  # (R,) offsets of the groups in cat
+    cat: np.ndarray  # the heavy groups' node ids, concatenated
+    p_hh: np.ndarray  # (R, R) heavy-heavy edge probabilities, float32
+    p_wh: np.ndarray  # (|W|, R) light-source strip probabilities
+    p_hw: np.ndarray  # (R, |W|) heavy-source strip probabilities
+    light_plan: Optional[QuiltPlan]  # quilt plan of F[W] (None if W is empty)
+    pool: Optional[torch.Tensor] = None  # (|cat| + |W|,) int32 node ids, on device
+    blk_rows: Optional[torch.Tensor] = None  # (M,) int32
+    blk_cols: Optional[torch.Tensor] = None  # (M,) int32
+    blk_src_base: Optional[torch.Tensor] = None  # (M,) int32 pool offset of the rows
+    blk_dst_base: Optional[torch.Tensor] = None  # (M,) int32 pool offset of the cols
+    blk_alpha: Optional[torch.Tensor] = None  # (M,) float32 per-cell acceptance
+    blk_cumw: Optional[torch.Tensor] = None  # (M,) float64 normalized cumulative weights
+    heavy_budget: Optional[int] = None
+    heavy_mean: float = 0.0  # expected heavy-part edges S_h
+
+    @property
+    def R(self) -> int:
+        return int(self.heavy_cfgs.size)
+
+
+def _edge_probs(Fa: np.ndarray, Fb: np.ndarray, thetas) -> np.ndarray:
+    """float32 min(exp(log Q), 1) between rows of Fa and Fb: the reference's
+    host log Q (``magm.host_log_edge_prob``), then numpy's float32 exp, as
+    the reference takes it."""
+    return np.minimum(np.exp(magm.host_log_edge_prob(Fa, Fb, thetas)), 1.0)
+
+
+def build_split_plan(
+    F, params: magm.MAGMParams, bprime: Optional[int] = None, *, use_cache: bool = False, device=None
+) -> SplitPlan:
+    """The section-5 split of the (n, d) attributes ``F`` on ``device``
+    (default ``"cuda"``); ``bprime=None`` minimises the paper's cost model
+    (:func:`choose_bprime`).
+
+    Everything is computed on the host, as the reference computes it; only
+    the finished light plan and heavy-round arrays go to the device.
+    ``use_cache=True`` takes the light plan from the shims' cache
+    (:func:`get_quilt_plan`)."""
+    dev = resolve_device(device)
+    F = F.cpu().numpy() if isinstance(F, torch.Tensor) else np.asarray(F)
+    n, d = F.shape
+    lam = magm.configs_from_attributes(torch.from_numpy(np.array(F))).numpy()
+    uniq, counts = np.unique(lam, return_counts=True)
+    if bprime is None:
+        bprime, _ = choose_bprime(counts, n, d, magm.expected_edges(params, n))
+
+    heavy = counts > bprime
+    heavy_cfgs = uniq[heavy]
+    R = int(heavy_cfgs.size)
+    node_is_heavy = np.isin(lam, heavy_cfgs)
+    W = np.nonzero(~node_is_heavy)[0]
+    sizes = counts[heavy].astype(np.int64)
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]) if R else np.zeros(0, dtype=np.int64)
+    # a stable sort by config lists each heavy group's nodes in node order
+    order = np.argsort(lam, kind="stable")
+    cat = order[node_is_heavy[order]].astype(np.int64)
+    p_hh, p_wh, p_hw = np.zeros((0, 0)), np.zeros((W.size, 0)), np.zeros((0, W.size))
+    if R:
+        heavy_attr = magm.attributes_from_configs(torch.from_numpy(heavy_cfgs), d).numpy()
+        p_hh = _edge_probs(heavy_attr, heavy_attr, params.thetas)
+        if W.size:
+            p_wh = _edge_probs(F[W], heavy_attr, params.thetas)
+            p_hw = _edge_probs(heavy_attr, F[W], params.thetas)
+
+    light_plan = None
+    if W.size:
+        light_plan = (
+            get_quilt_plan(F[W], params.thetas, device=dev)
+            if use_cache
+            else build_quilt_plan(F[W], params.thetas, device=dev)
+        )
+    return SplitPlan(
+        n=n, d=d, bprime=int(bprime), W=W, heavy_cfgs=heavy_cfgs, sizes=sizes, offs=offs, cat=cat,
+        p_hh=p_hh, p_wh=p_wh, p_hw=p_hw, light_plan=light_plan,
+        **_heavy_device_state(n, W, sizes, offs, cat, p_hh, p_wh, p_hw, dev),
+    )
+
+
+def _heavy_device_state(n, W, sizes, offs, cat, p_hh, p_wh, p_hw, device) -> dict:
+    """The heavy round's arrays on ``device``: the M uniform blocks in the
+    reference's order (the R^2 heavy-heavy blocks row-major, then the
+    light -> heavy strips (i, b) row-major, then heavy -> light), their
+    weights w = rows * cols * p, the exact budget G at p_max / S_h, the
+    acceptance alpha = p / (1 - (1 - p / S_h)^G) and the normalized
+    cumulative weights in float64 (block choice by searchsorted over up to
+    ~10^7 blocks needs more than float32's grid).  The arithmetic is the
+    reference's numpy float64, so every array is equal to its."""
+    R = int(sizes.size)
+    if R == 0:
+        return {}
+    C = int(cat.size)
+    s32 = sizes.astype(np.int32)
+    o32 = offs.astype(np.int32)
+    rows, cols, src_base, dst_base = [np.repeat(s32, R)], [np.tile(s32, R)], [np.repeat(o32, R)], [np.tile(o32, R)]
+    probs = [p_hh.reshape(-1).astype(np.float64)]
+    if W.size:
+        strip = C + np.repeat(np.arange(W.size, dtype=np.int32), R)
+        ones = np.ones(W.size * R, dtype=np.int32)
+        rows += [ones, np.tile(s32, W.size)]
+        cols += [np.tile(s32, W.size), ones]
+        src_base += [strip, np.tile(o32, W.size)]
+        dst_base += [np.tile(o32, W.size), strip]
+        probs += [p_wh.reshape(-1).astype(np.float64), p_hw.T.reshape(-1).astype(np.float64)]
+    rows, cols, probs = np.concatenate(rows), np.concatenate(cols), np.concatenate(probs)
+    w = rows.astype(np.float64) * cols.astype(np.float64) * probs
+    s_h = float(w.sum())
+    if s_h <= 0.0:
+        return {"heavy_budget": 0, "heavy_mean": 0.0}
+    budget = _exact_budget(float(probs.max()), s_h)
+    if budget is None or budget > kpgm.DEVICE_MAX_CANDIDATES:
+        return {"heavy_mean": s_h}  # no budget: the host binomials run
+    pi = np.minimum(probs / s_h, 1.0 - 1e-12)
+    q = -np.expm1(float(budget) * np.log1p(-pi))
+    del pi
+    with np.errstate(divide="ignore", invalid="ignore"):
+        alpha = np.where(q > 0.0, np.minimum(probs / q, 1.0), 0.0).astype(np.float32)
+    del q, probs
+    cumw = np.cumsum(w) / s_h
+    cumw[-1] = 1.0
+    del w
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return {
+        "pool": put(np.concatenate([cat, W]).astype(np.int32)),
+        "blk_rows": put(rows),
+        "blk_cols": put(cols),
+        "blk_src_base": put(np.concatenate(src_base)),
+        "blk_dst_base": put(np.concatenate(dst_base)),
+        "blk_alpha": put(alpha),
+        "blk_cumw": put(cumw),
+        "heavy_budget": int(budget),
+        "heavy_mean": s_h,
+    }
+
+
+def rng_from_key(key: torch.Tensor) -> np.random.Generator:
+    """The numpy Generator of a key: ``default_rng`` seeded with the two
+    uint32 words of ``fold_in(key, 0x5EED)``, the reference's exact stream.
+    It draws the heavy part where the host binomials run."""
+    words = prng.fold_in(key, 0x5EED).reshape(-1).tolist()
+    return np.random.default_rng([int(x) & 0xFFFFFFFF for x in words])
+
+
+def _split_heavy_body(hkey: torch.Tensor, sp: SplitPlan, *, budget: int, node_bits: int):
+    """One fixed-shape round realizing every heavy block at once, on the
+    plan's device: ``(src, dst, take)`` of ``budget`` proposals.
+
+    Proposal s picks block m by a 48-bit uniform from hash channels 0 and
+    1 of slot s (exact in float64), then a uniform cell of the block from
+    channels 2 and 3.  The cell (the packed node pair) is accepted with
+    ``blk_alpha[m]`` by a hash that its duplicates share, and the
+    segmented dedup keeps each accepted pair's first proposal."""
+    dev = sp.pool.device
+    s0, s1 = ops.counter_seed(hkey)
+    gid0 = torch.zeros((), dtype=torch.int64, device=dev)
+    base = torch.arange(budget, dtype=torch.int64, device=dev) * ops.PRNG_CHANNELS
+    hi = ops.counter_hash(s0, s1, gid0, base)
+    lo = ops.counter_hash(s0, s1, gid0, base + 1)
+    u_blk = (hi >> 8).to(torch.float64) * 2.0**-24 + (lo >> 8).to(torch.float64) * 2.0**-48
+    del hi, lo
+    m = torch.clamp(torch.searchsorted(sp.blk_cumw, u_blk, right=True), 0, sp.blk_cumw.numel() - 1)
+    del u_blk
+    rows, cols = sp.blk_rows[m], sp.blk_cols[m]
+    u_r = ops.counter_u01(s0, s1, gid0, base + 2)
+    u_c = ops.counter_u01(s0, s1, gid0, base + 3)
+    r = torch.minimum((u_r * rows.to(torch.float32)).to(torch.int32), rows - 1)
+    c = torch.minimum((u_c * cols.to(torch.float32)).to(torch.int32), cols - 1)
+    src = sp.pool[sp.blk_src_base[m] + r]
+    dst = sp.pool[sp.blk_dst_base[m] + c]
+    # heavy and light nodes are disjoint and the blocks tile disjoint
+    # rectangles of pairs, so the packed pair names the cell
+    pair = src.to(torch.int64) * (1 << node_bits) + dst.to(torch.int64)
+    accept = _accept_u01(accept_salt(hkey, dev), gid0, pair) < sp.blk_alpha[m]
+    take, _ = dedup.segmented_unique_mask(
+        torch.zeros(budget, dtype=torch.int32, device=dev), src, dst,
+        torch.tensor([budget], dtype=torch.int64, device=dev),
+        torch.tensor([budget], dtype=torch.int64, device=dev),
+        node_bits=node_bits, valid=accept,
+    )
+    return src, dst, take
+
+
+def _heavy_host(rng: np.random.Generator, sp: SplitPlan) -> List[np.ndarray]:
+    """The heavy blocks by host binomials: one batched binomial for the R^2
+    heavy-heavy counts and one for each direction's |W| x R strips, then
+    the distinct cells of each (:func:`_sample_cells`).  Returns the
+    ``(E, 2)`` pieces in the reference's order."""
+    W, R, sizes, offs, cat = sp.W, sp.R, sp.sizes, sp.offs, sp.cat
+    pieces = []
+    cells = sizes[:, None] * sizes[None, :]
+    counts_hh = rng.binomial(cells, sp.p_hh).reshape(-1)
+    cell_ids = _sample_cells(rng, counts_hh, cells.reshape(-1))
+    if cell_ids.size:
+        rep = np.repeat(np.arange(R * R), counts_hh)
+        a, b = rep // R, rep % R
+        rr, cc = cell_ids // sizes[b], cell_ids % sizes[b]
+        pieces.append(np.stack([cat[offs[a] + rr], cat[offs[b] + cc]], axis=1))
+    if W.size:
+        sizes_rep = np.tile(sizes, W.size)
+        for p, flip in ((sp.p_wh, False), (sp.p_hw.T, True)):
+            counts_s = rng.binomial(sizes[None, :], p).reshape(-1)  # row-major over (i, b)
+            cols = _sample_cells(rng, counts_s, sizes_rep)
+            if not cols.size:
+                continue
+            rep = np.repeat(np.arange(W.size * R), counts_s)
+            i, b = rep // R, rep % R
+            light, heavy = W[i], cat[offs[b] + cols]
+            pieces.append(np.stack([heavy, light] if flip else [light, heavy], axis=1))
+    return pieces
+
+
+def split_run(
+    key: torch.Tensor,
+    sp: SplitPlan,
+    rng: Optional[np.random.Generator] = None,
+    *,
+    max_rounds: int = 8,
+    oversample: float = 1.05,
+    backend: str = "auto",
+    use_kernel: Optional[bool] = None,
+    mesh=None,
+) -> Tuple[np.ndarray, QuiltStats]:
+    """One section-5 sample of ``sp`` for ``key``: ``((E, 2) edges, stats)``.
+
+    The light subgraph is quilted (:func:`quilt_run` on ``sp.light_plan``,
+    mapped to node ids through W) and the heavy blocks are realized by the
+    device round (:func:`_split_heavy_body`) keyed by a sibling split of
+    ``key``; only its kept pairs are copied to the host.  With ``rng`` (a
+    numpy Generator), or where the plan has no heavy budget, the heavy
+    blocks are host binomials, drawn from ``rng`` or from
+    :func:`rng_from_key`.  The pieces are deduped on the host in order
+    (``dedup.dedup_edges``)."""
+    reason = unported_reason(mesh=mesh)
+    if reason is not None:
+        raise NotImplementedError(f"{reason} is not ported yet")
+    W, R = sp.W, sp.R
+    pieces: List[np.ndarray] = []
+    stats_b = draws = kp_total = 0
+    key, hkey = prng.split(key)
+    if W.size:
+        key, sub = prng.split(key)
+        run = quilt_run(
+            sub, sp.light_plan, max_rounds=max_rounds, oversample=oversample, backend=backend,
+            use_kernel=use_kernel,
+        )
+        ew = run.edges()
+        st = run.stats(ew.shape[0])
+        stats_b, draws, kp_total = st.B, st.num_kpgm_draws, st.kpgm_edges_total
+        if ew.size:
+            pieces.append(np.stack([W[ew[:, 0]], W[ew[:, 1]]], axis=1))
+    if R and rng is None and sp.heavy_budget is not None:
+        if sp.heavy_budget > 0:
+            src, dst, take = _split_heavy_body(hkey, sp, budget=sp.heavy_budget, node_bits=_node_bits(sp.n))
+            pairs = torch.stack([src[take], dst[take]], dim=1).to(torch.int64).cpu().numpy()
+            if pairs.size:
+                pieces.append(pairs)
+    elif R:
+        pieces.extend(_heavy_host(rng_from_key(key) if rng is None else rng, sp))
+    out = dedup.dedup_edges(np.concatenate(pieces, axis=0)) if pieces else np.zeros((0, 2), dtype=np.int64)
+    return out, QuiltStats(
+        B=stats_b, num_kpgm_draws=draws, kpgm_edges_total=kp_total, kept_edges=out.shape[0],
+        heavy_groups=R, light_nodes=int(W.size), bprime=int(sp.bprime),
+    )
+
+
+_SEED_UNSET = object()
+
+
+def quilt_sample_fast(
+    key: torch.Tensor,
+    params: magm.MAGMParams,
+    F,
+    *,
+    bprime: Optional[int] = None,
+    seed=_SEED_UNSET,
+    mesh=None,
+    backend: str = "auto",
+    use_kernel: Optional[bool] = None,
+    return_stats: bool = False,
+    device=None,
+):
+    """Deprecated shim: one section-5 sample of the attributes ``F`` on
+    ``device`` (default ``"cuda"``), equal to ``MAGMSampler(SamplerConfig(
+    ..., split=True)).sample(key)``.  ``seed=`` (deprecated as well) draws
+    the heavy blocks by host binomials from ``np.random.default_rng(seed)``
+    instead of the device round."""
+    _warn_shim("quilt_sample_fast", "repro_torch.api.MAGMSampler (SamplerConfig split=True)")
+    if seed is _SEED_UNSET:
+        rng = None
+    else:
+        warnings.warn(
+            "quilt_sample_fast(seed=...) is deprecated: omit it and the numpy stream derives "
+            "from `key` (rng_from_key)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        rng = np.random.default_rng(seed)
+    sp = build_split_plan(F, params, bprime, use_cache=True, device=device)
+    out, st = split_run(key, sp, rng, mesh=mesh, backend=backend, use_kernel=use_kernel)
+    return (out, st) if return_stats else out
+
+
+def _er_block(rng: np.random.Generator, ns: int, nt: int, p: float) -> np.ndarray:
+    """An Erdos-Renyi ns x nt block: each cell an edge with probability p,
+    as a Binomial(ns * nt, p) count of distinct uniform cells."""
+    cells = ns * nt
+    if cells == 0 or p <= 0.0:
+        return np.zeros((0, 2), dtype=np.int64)
+    count = rng.binomial(cells, min(p, 1.0))
+    if count == 0:
+        return np.zeros((0, 2), dtype=np.int64)
+    flat = _sample_cells(rng, np.array([count], np.int64), np.array([cells], np.int64))
+    return np.stack([flat // nt, flat % nt], axis=1).astype(np.int64)
+
+
+def _sample_cells(rng: np.random.Generator, counts: np.ndarray, sizes: np.ndarray) -> np.ndarray:
+    """For each row i, ``counts[i]`` distinct integers of [0, sizes[i])
+    (counts clipped to sizes; rows in order, empty rows skipped).
+
+    Dense rows (more than half their range) take the first counts[i] of a
+    random-key argsort with the out-of-range columns pushed last; sparse
+    rows draw with replacement and redraw only the colliding slots, all
+    rows at once per round, with ``rng.choice(replace=False)`` for rows
+    still colliding after ``_RESAMPLE_ROUNDS``."""
+    counts = np.asarray(counts, dtype=np.int64)
+    sizes = np.asarray(sizes, dtype=np.int64)
+    pos_mask = counts > 0
+    pos = np.minimum(counts[pos_mask], sizes[pos_mask])
+    sz = sizes[pos_mask]
+    tot = int(pos.sum())
+    if tot == 0:
+        return np.empty(0, dtype=np.int64)
+    seg_id = np.repeat(np.arange(pos.size, dtype=np.int64), pos)
+    cols = np.empty(tot, dtype=np.int64)
+
+    dense_seg = pos > sz // 2
+    dense_slot = dense_seg[seg_id]
+    if dense_seg.any():
+        lens, szs = pos[dense_seg], sz[dense_seg]
+        gmax = int(szs.max())
+        picks = []
+        rows_per_chunk = max(1, _DENSE_CHUNK_CELLS // max(gmax, 1))
+        for lo in range(0, lens.size, rows_per_chunk):
+            chunk_len = lens[lo : lo + rows_per_chunk]
+            chunk_sz = szs[lo : lo + rows_per_chunk]
+            keys = rng.random((chunk_len.size, gmax))
+            keys[np.arange(gmax)[None, :] >= chunk_sz[:, None]] = 2.0
+            order = np.argsort(keys, axis=1)
+            picks.append(order[np.arange(gmax)[None, :] < chunk_len[:, None]])
+        cols[dense_slot] = np.concatenate(picks)
+
+    sparse_slot = ~dense_slot
+    ns = int(sparse_slot.sum())
+    if ns:
+        sid = seg_id[sparse_slot]
+        smax = int(sz.max())
+        sub = rng.integers(0, sz[sid])
+        dup = np.zeros(ns, dtype=bool)
+        for _ in range(_RESAMPLE_ROUNDS):
+            key = sid * smax + sub
+            order = np.argsort(key, kind="stable")
+            sk = key[order]
+            dup[:] = False
+            dup[order[1:]] = sk[1:] == sk[:-1]
+            if not dup.any():
+                break
+            sub[dup] = rng.integers(0, sz[sid[dup]])
+        else:  # rows still colliding: an exact draw for those only
+            for s in np.unique(sid[dup]):
+                m = sid == s
+                sub[m] = rng.choice(int(sz[s]), size=int(m.sum()), replace=False)
+        cols[sparse_slot] = sub
+    return cols
+
+
+def _sample_cols(rng: np.random.Generator, counts: np.ndarray, group: np.ndarray) -> np.ndarray:
+    """For each row i, ``counts[i]`` distinct members of ``group``."""
+    counts = np.asarray(counts)
+    return group[_sample_cells(rng, counts, np.full(counts.shape, group.size, dtype=np.int64))]
 
 
 def naive_reference_sample(key: torch.Tensor, params: magm.MAGMParams, F, *, device=None) -> np.ndarray:

@@ -237,8 +237,8 @@ def test_kpgm_sampler_rejects_and_shim(ref):
     with pytest.raises(TypeError):
         KPGMSampler(SamplerConfig(params=interop.from_reference(
             _thetas(6, None), np.zeros((4, 6), np.int8), np.zeros(2))[0], device="cpu"))
-    with pytest.raises(NotImplementedError, match="stream and batch"):
-        KPGMSampler(SamplerConfig(params=p, device="cpu")).sample_batch(2)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+        KPGMSampler(SamplerConfig(params=p, device="cpu")).resume_stream("ckpt")
     with pytest.warns(DeprecationWarning):
         shim = kpgm.kpgm_sample(prng.PRNGKey(2), p, num_edges=40, device="cpu")
     session = KPGMSampler(SamplerConfig(params=p, device="cpu")).sample(prng.PRNGKey(2), num_edges=40)

@@ -264,5 +264,12 @@ def test_plain_lookup_ranked_and_host_runs():
     run = quilt.quilt_run(prng.PRNGKey(4), s.plan, backend="host")
     assert run.host_edges is not None and run.kept_edges() == run.edges().shape[0]
     assert run.stats() == run.host_stats and run.snode is None
-    # a host run carries the host path's own per-graph targets, all met here
-    assert np.array_equal(run.counts, run.targets) and run.counts.sum() == run.stats().kpgm_edges_total
+    # a host run reports the engine's target draw and no device counts, as
+    # the reference's does; the host path's own per-graph targets (it gets
+    # the key's first split) are all met here and add up to its stats
+    assert not run.counts.any() and run.targets.size == s.plan.num_graphs
+    edges, st, targets, counts = quilt._quilt_sample_host(
+        prng.split(prng.PRNGKey(4))[0], s.plan, max_rounds=8, oversample=1.05
+    )
+    assert np.array_equal(edges, run.edges()) and st == run.stats()
+    assert np.array_equal(counts, targets) and counts.sum() == run.stats().kpgm_edges_total

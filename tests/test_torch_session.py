@@ -148,7 +148,7 @@ def test_default_device_raises_without_card(monkeypatch):
     "change",
     [
         {"backend": "balldrop", "mesh": "auto"},
-        {"split": True},
+        {"split": True, "mesh": "auto"},
         {"mesh": "auto"},
     ],
     ids=["balldrop", "split", "mesh"],
@@ -167,12 +167,12 @@ def test_unported_run_paths_raise():
     )[0]
     s = MAGMSampler(SamplerConfig(params=p, num_nodes=32, device="cpu"))
     key = prng.PRNGKey(0)
-    for kwargs in ({"num_samples": 2}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            quilt.quilt_run(key, s.plan, **kwargs)
-    for method in (s.sample_stream, s.sample_batch):
-        with pytest.raises(NotImplementedError, match="stream and batch"):
-            method()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+        quilt.quilt_run(key, s.plan, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+        next(s.sample_stream(key, checkpoint_dir="ckpt"))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+        s.resume_stream("ckpt")
 
 
 def test_budget_over_device_cap_takes_host_path(monkeypatch):
