@@ -68,7 +68,19 @@ launch counts set to 0 just before and read just after:
 - the 3-sigma validation suite on the card: THETA_2, n = 2^12, 16 seeds of
   each of "auto", "host", "balldrop" and "split", every pair of backends and
   auto against split, and each against the closed-form moments, no failed
-  claim.
+  claim;
+- resilience and serving: checkpointed streams (chunks of 2^16) of the
+  n = 2^15 default session, the split at mu = 0.5 and KPGM d = 16 with
+  num_edges, each killed at chunk 4 (a FaultSchedule on stream.chunk),
+  resumed by a fresh session and killed again at visit 6, then resumed to
+  the end: equal to sample(key), with no byte left on the card by the kill;
+  card -> CPU and CPU -> card resumes at n = 2^12; a fault inside a save
+  (checkpoint.rename); the GraphServer over the n = 2^15 session: a burst of
+  12 seeds against max_queue = 4 (typed responses, accepted + shed = 12, ok
+  edges equal to sample(), p99 latency within (max_queue + 1) x the longest
+  service), 8 requests in turn (p50/p99, edges/s), an InjectedFault retried
+  to ok, a DeviceLoss answered 500 then ok, an expired deadline answered
+  408 with no launch, garbage answered 400, and the serve CLI.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  Output, last three lines: the card's name and power limit as
@@ -92,6 +104,10 @@ main-path shape with random and graph-contiguous block ids).
 
 builds the kernels and runs the split, batch and stream phases and the
 3-sigma suite alone.
+
+    python3 chip_smoke.py --serve
+
+builds the kernels and runs the resilience and serving phase alone.
 """
 
 from __future__ import annotations
@@ -103,6 +119,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -115,13 +132,17 @@ import torch  # noqa: E402
 
 from repro_torch.analysis import validate  # noqa: E402
 from repro_torch.api import KPGMSampler, MAGMSampler, SamplerConfig  # noqa: E402
+from repro_torch.api import stream as stream_mod  # noqa: E402
 from repro_torch.configs.magm_paper import DEFAULT_MU, THETA_1, THETA_2  # noqa: E402
 from repro_torch.core import balldrop, f32math, kpgm, magm, naive, prng, quilt  # noqa: E402
+from repro_torch.dist import chaos  # noqa: E402
+from repro_torch.dist import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.fit import magfit  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bernoulli_tile as bt  # noqa: E402
 from repro_torch.kernels import magm_logprob as ml  # noqa: E402
 from repro_torch.kernels import quadrant_descent as qd  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 
 FULL_LOG2_N = 15  # the largest paper configuration the exact path runs
 CHECK_LOG2_N = 12  # tables fit shared memory; small enough for the CPU
@@ -1867,6 +1888,259 @@ def phase_split_and_batches(device, sampler) -> dict:
     return out
 
 
+RESUME_CHUNK = 1 << 16  # the stream's chunk at size: ~8 chunks of the n = 2^15 sample
+RESUME_KILLS = (4, 6)  # stream.chunk visits of the first run and of the first resume
+RESUME_KPGM_EDGES = 500_000  # KPGM d = 16 with num_edges: ~8 chunks
+CROSS_CHUNK = 1 << 12  # the n = 2^12 cross-device streams
+SERVE_SEEDS = 12
+SERVE_QUEUE = 4
+SERVE_SEQUENTIAL = 8
+SERVE_STATUSES = {"ok": 0, "bad_request": 400, "deadline_exceeded": 408, "overloaded": 429, "error": 500}
+
+
+def killed_stream(chunks, visit: int, replayed: int = 0) -> list:
+    """Consume ``chunks`` under a FaultSchedule that kills stream.chunk at
+    ``visit``; the chunks delivered before the fault (exactly ``visit -
+    replayed``: a resumed stream's replay passes the site without
+    delivering)."""
+    got = []
+    try:
+        with chaos.active(chaos.FaultSchedule([chaos.FaultSpec("stream.chunk", (visit,))])):
+            for c in chunks:
+                got.append(c)
+    except chaos.InjectedFault:
+        pass
+    else:
+        raise AssertionError(f"the stream ended before its kill at chunk {visit}")
+    if len(got) != visit - replayed:
+        raise AssertionError(f"a kill at chunk {visit} delivered {len(got)} chunks")
+    return got
+
+
+def same_stream(what: str, got: list, whole: np.ndarray, chunk: int) -> None:
+    if not np.array_equal(np.concatenate(got), whole) or any(c.shape[0] != chunk for c in got[:-1]):
+        raise AssertionError(f"{what}: the killed and resumed stream differs from the uninterrupted one")
+
+
+def kill_and_resume(what: str, make, key, chunk: int, **kw) -> dict:
+    """A checkpointed stream of a fresh ``make()`` session killed at chunk
+    RESUME_KILLS[0], resumed by another fresh session and killed again at
+    visit RESUME_KILLS[1] of that replay, then resumed to its end: the
+    splice must equal ``sample(key).edges``; the killed run's device
+    buffers must be freed (memory back to where it was after a warm
+    sample()).  Times the last resume against one sample(), and the
+    checkpoint saves."""
+    sampler = make()
+    sampler.sample(key, **kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    whole = sampler.sample(key, **kw).edges
+    sample_ms = (time.perf_counter() - t) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        saves = []
+        real_save = stream_mod._save
+
+        def timed_save(directory, state):
+            t = time.perf_counter()
+            real_save(directory, state)
+            saves.append(time.perf_counter() - t)
+
+        stream_mod._save = timed_save
+        try:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_kernel_launches()
+            got = killed_stream(sampler.sample_stream(key, chunk_edges=chunk, checkpoint_dir=d, **kw), RESUME_KILLS[0])
+            freed = torch.cuda.memory_allocated() - before
+            got += killed_stream(make().resume_stream(d), RESUME_KILLS[1], replayed=RESUME_KILLS[0])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got += list(make().resume_stream(d))
+            resume_ms = (time.perf_counter() - t) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            launches = ops.kernel_launches()["quilt_prng_descent_lookup"]
+            if list(make().resume_stream(d)):
+                raise AssertionError(f"{what}: a finished stream resumed with chunks")
+        finally:
+            stream_mod._save = real_save
+    same_stream(what, got, whole, chunk)
+    if freed > 0:
+        raise AssertionError(f"{what}: the killed stream left {freed} bytes on the card")
+    if launches < 3:
+        raise AssertionError(f"{what}: {launches} launches of quilt_prng_descent_lookup in three engine runs")
+    out = {"chunks": len(got), "edges": int(whole.shape[0]), "resume_ms": resume_ms, "sample_ms": sample_ms,
+           "saves": len(saves), "saves_ms_total": sum(saves) * 1e3, "peak_mem_bytes": peak,
+           "bytes_left_by_kill": freed, "launches": launches}
+    log(f"kill and resume {what}: {json.dumps(out)}")
+    return out
+
+
+def phase_resume_cross_device(device) -> None:
+    """At n = 2^12: a stream killed on the card resumes in a CPU session,
+    and one killed on the CPU resumes on the card; both splices equal the
+    CPU port's uninterrupted stream."""
+    key = prng.PRNGKey(SEED + 310)
+    cfg = paper_config(CHECK_LOG2_N, device)
+    want = list(MAGMSampler(cfg.replace(device="cpu")).sample_stream(key, chunk_edges=CROSS_CHUNK))
+    for src, dst in ((device, "cpu"), ("cpu", device)):
+        with tempfile.TemporaryDirectory() as d:
+            s = MAGMSampler(cfg.replace(device=src))
+            got = killed_stream(s.sample_stream(key, chunk_edges=CROSS_CHUNK, checkpoint_dir=d), 3)
+            got += list(MAGMSampler(cfg.replace(device=dst)).resume_stream(d))
+        if same_chunks(f"resume {src} -> {dst} n=2^{CHECK_LOG2_N}", got, want) < 4:
+            raise AssertionError("the cross-device stream is too short to be killed mid-stream")
+    log(f"resume across devices n=2^{CHECK_LOG2_N}: card -> CPU and CPU -> card equal the CPU stream "
+        f"({len(want)} chunks of {CROSS_CHUNK})")
+
+
+def phase_save_fault(sampler) -> None:
+    """A fault inside a save (checkpoint.rename at the save of step 3):
+    latest_step still offers the previous cursor (2), and the resume from
+    it equals sample(key)."""
+    key = prng.PRNGKey(SEED + 320)
+    with tempfile.TemporaryDirectory() as d:
+        got = []
+        try:
+            with chaos.active(chaos.FaultSchedule([chaos.FaultSpec("checkpoint.rename", (3,))])):
+                for c in sampler.sample_stream(key, chunk_edges=RESUME_CHUNK, checkpoint_dir=d):
+                    got.append(c)
+        except chaos.InjectedFault:
+            pass
+        step = ckpt_mod.latest_step(d)
+        if step != 2 or len(got) != 3:
+            raise AssertionError(f"a fault in the save of step 3: latest_step={step}, {len(got)} chunks out")
+        rest = list(MAGMSampler(sampler.config.replace(F=sampler.F)).resume_stream(d))
+    same_stream("resume after a fault in a save", got[:step] + rest, sampler.sample(key).edges, RESUME_CHUNK)
+    log(f"fault inside a save: latest_step={step} after {len(got)} chunks out; the resume equals sample(key)")
+
+
+def served(fut) -> "serve.ServeResponse":
+    resp = fut.result(timeout=600)
+    if not isinstance(resp, serve.ServeResponse) or SERVE_STATUSES.get(resp.status) != resp.code:
+        raise AssertionError(f"an untyped response: {resp!r}")
+    return resp
+
+
+def percentile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def phase_serve(sampler) -> dict:
+    """GraphServer over the n = 2^15 session (chunks of 2^16): a burst of
+    SERVE_SEEDS seeds against max_queue = SERVE_QUEUE, SERVE_SEQUENTIAL
+    requests one after another, a retried InjectedFault, a DeviceLoss at
+    quilt.dispatch (500, then ok), an expired deadline (408, no launch),
+    garbage payloads (400), and the CLI as a subprocess."""
+    out = {}
+    ops.reset_kernel_launches()
+    with serve.GraphServer(sampler, max_queue=SERVE_QUEUE, chunk_edges=RESUME_CHUNK) as srv:
+        futures = [srv.submit(key=prng.PRNGKey(SEED + 400 + i)) for i in range(SERVE_SEEDS)]
+        burst = [served(f) for f in futures]
+        stats = dict(srv.stats)
+    launches = ops.kernel_launches()["quilt_prng_descent_lookup"]
+    ok = [(i, r) for i, r in enumerate(burst) if r.ok]
+    if stats["accepted"] + stats["shed"] != SERVE_SEEDS or stats["accepted"] != len(ok) or not ok:
+        raise AssertionError(f"burst: {stats}, {len(ok)} ok")
+    if any(not r.ok and (r.status, r.code) != ("overloaded", 429) for r in burst):
+        raise AssertionError(f"burst: a response neither ok nor shed: {[r.status for r in burst]}")
+    if launches < len(ok):
+        raise AssertionError(f"burst: {launches} launches of quilt_prng_descent_lookup for {len(ok)} samples")
+    for i, r in ok:
+        if not np.array_equal(r.edges, sampler.sample(prng.PRNGKey(SEED + 400 + i)).edges):
+            raise AssertionError(f"burst: seed {SEED + 400 + i} served other edges than sample()")
+    lat = [r.wait_s + r.service_s for _, r in ok]
+    bound = (SERVE_QUEUE + 1) * max(r.service_s for _, r in ok)
+    if percentile(lat, 0.99) > bound:
+        raise AssertionError(f"burst: p99 {percentile(lat, 0.99)} s over (max_queue + 1) x max service {bound} s")
+    out["burst"] = {"accepted": stats["accepted"], "shed": stats["shed"], "p99_latency_s": percentile(lat, 0.99),
+                    "bound_s": bound, "launches": launches}
+    log(f"serve burst n=2^{FULL_LOG2_N}: {json.dumps(out['burst'])} wait_s={[r.wait_s for _, r in ok]} "
+        f"service_s={[r.service_s for _, r in ok]}")
+
+    with serve.GraphServer(sampler, chunk_edges=RESUME_CHUNK) as srv:
+        seq = [served(srv.submit(key=prng.PRNGKey(SEED + 420 + i))) for i in range(SERVE_SEQUENTIAL)]
+        if not all(r.ok for r in seq):
+            raise AssertionError(f"sequential requests: {[r.status for r in seq]}")
+        svc = [r.service_s for r in seq]
+        edges = sum(int(r.edges.shape[0]) for r in seq)
+        out["sequential"] = {"service_s_p50": percentile(svc, 0.5), "service_s_p99": percentile(svc, 0.99),
+                             "wait_s_p50": percentile([r.wait_s for r in seq], 0.5),
+                             "edges_per_s": edges / sum(svc), "requests": len(seq)}
+        log(f"serve sequential n=2^{FULL_LOG2_N}: {json.dumps(out['sequential'])} service_s={svc}")
+
+        with chaos.active(chaos.FaultSchedule([chaos.FaultSpec("serve.request", (0,))])):
+            r = served(srv.submit(key=prng.PRNGKey(SEED + 430)))
+        if not r.ok or srv.stats["retries"] < 1:
+            raise AssertionError(f"an InjectedFault was not retried to ok: {r.status} {srv.stats}")
+        with chaos.active(chaos.FaultSchedule([chaos.FaultSpec("quilt.dispatch", (0,), "device_loss", 0)])):
+            lost = served(srv.submit(key=prng.PRNGKey(SEED + 431)))
+        after = served(srv.submit(key=prng.PRNGKey(SEED + 431)))
+        if (lost.status, lost.code) != ("error", 500) or "DeviceLoss" not in lost.message or not after.ok:
+            raise AssertionError(f"DeviceLoss: {lost.status} {lost.message}; next {after.status}")
+        if not np.array_equal(after.edges, sampler.sample(prng.PRNGKey(SEED + 431)).edges):
+            raise AssertionError("the request after a DeviceLoss served other edges than sample()")
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        late = served(srv.submit(key=prng.PRNGKey(SEED + 432), deadline_s=1e-9))
+        torch.cuda.synchronize()
+        if (late.status, late.code, late.service_s) != ("deadline_exceeded", 408, 0.0) or any(ops.kernel_launches().values()):
+            raise AssertionError(f"an expired deadline: {late.status} service_s={late.service_s} {ops.kernel_launches()}")
+        garbage = [None, 42, "sample please", {"kind": "train"}, {"bogus": 1}, {"chunk_edges": 0},
+                   {"chunk_edges": "many"}, {"seed": "not-a-seed"}, {"deadline_s": -1.0}, {"num_edges": 10}]
+        codes = [(r.status, r.code) for r in (served(srv.handle(p)) for p in garbage)]
+        if any(c != ("bad_request", 400) for c in codes):
+            raise AssertionError(f"garbage payloads: {codes}")
+        out["faults"] = dict(srv.stats)
+    log(f"serve faults: retried to ok, DeviceLoss -> 500 then ok, expired deadline -> 408 with no launch, "
+        f"{len(garbage)} garbage payloads -> 400; stats={json.dumps(out['faults'])}")
+
+    t = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--magm", "--graph-d", str(FULL_LOG2_N), "--requests", "4",
+         "--chunk-edges", str(RESUME_CHUNK), "--device", str(sampler.device)],
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")), capture_output=True, text=True, timeout=600,
+    )
+    for line in cli.stdout.splitlines():
+        log(f"  cli: {line}")
+    if cli.returncode != 0 or "[serve] OK" not in cli.stdout or "'errors': 0" not in cli.stdout:
+        raise AssertionError(f"the serve CLI failed ({cli.returncode}): {cli.stderr[-2000:]}")
+    out["cli_s"] = time.perf_counter() - t
+    return out
+
+
+def phase_resilience_and_serving(device, sampler) -> dict:
+    """Kill and resume at size (the n = 2^15 default session, the split at
+    mu = 0.5 and KPGM d = 16 with num_edges), across devices at n = 2^12,
+    a fault inside a save, and the GraphServer over the n = 2^15 session;
+    logs each part's seconds."""
+    secs, out = {}, {}
+    key = prng.PRNGKey(SEED + 300)
+    kpgm_cfg = SamplerConfig(params=kpgm.make_params(THETA_1, KPGM_BATCH_D), device=device)
+    parts = (
+        (f"default n=2^{FULL_LOG2_N}", lambda: MAGMSampler(sampler.config.replace(F=sampler.F)), {}),
+        # one split session for the run and its resumes: its plan takes seconds to build
+        (f"split mu=0.5 n=2^{FULL_LOG2_N}", lambda s=MAGMSampler(split_config(FULL_LOG2_N, 0.5, device)): s, {}),
+        (f"KPGM d={KPGM_BATCH_D}", lambda: KPGMSampler(kpgm_cfg), {"num_edges": RESUME_KPGM_EDGES}),
+    )
+    for name, make, kw in parts:
+        t = time.perf_counter()
+        out[name] = kill_and_resume(name, make, key, RESUME_CHUNK, **kw)
+        secs[name] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_resume_cross_device(device)
+    secs["resume_cross_device"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_save_fault(sampler)
+    secs["save_fault"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["serve"] = phase_serve(sampler)
+    secs["serve"] = time.perf_counter() - t
+    log(f"resilience and serving phases: seconds={json.dumps(secs)} total={sum(secs.values())}")
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1887,6 +2161,13 @@ def main(argv) -> int:
         lookup = phase_lookup_vs_plain(device, plans)
         log(nvidia_smi())
         log(json.dumps({"quilt_descent_lookup": lookup}))
+        return 0
+    if argv == ["--serve"]:
+        t = time.perf_counter()
+        res = phase_resilience_and_serving(device, MAGMSampler(paper_config(FULL_LOG2_N, device)))
+        log(f"resilience and serving seconds={time.perf_counter() - t}")
+        log(nvidia_smi())
+        log(json.dumps({"serve": res}))
         return 0
     if argv == ["--split"]:
         split = phase_split_and_batches(device, MAGMSampler(paper_config(FULL_LOG2_N, device)))
@@ -1917,6 +2198,7 @@ def main(argv) -> int:
     phase_balldrop_cross_device(device)
     split = phase_split_and_batches(device, sampler)
     phase_validation_suite(device)
+    phase_resilience_and_serving(device, sampler)
     log(f"balldrop launches: n=2^{FULL_LOG2_N} {bd_launches} n=2^{HOST_LOG2_N} {bd_host_launches}")
 
     kernels = [

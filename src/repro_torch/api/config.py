@@ -30,7 +30,7 @@ class SamplerConfig:
     session raises when no card is present).  The other fields mean what
     they mean in the reference (``split=True`` is the section-5 split
     sampler, ``bprime`` its light-part cap); ``mesh``, which this port does
-    not run yet (ROADMAP queue 1 item 7), makes the session raise
+    not run yet (ROADMAP queue 1 item 7b), makes the session raise
     ``NotImplementedError``.
     """
 

@@ -11,10 +11,14 @@ over the B = 1 identity plan, or Algorithm 1's host loop where no plan is
 built (``backend="host"``, d > 20).
 
 ``sample_stream`` emits one graph as fixed-size edge chunks, copied from
-the device round chunk by chunk; ``sample_batch`` draws several graphs
-through shared fused rounds (sample s's block pair g' is graph s * B^2 +
-g'), or one by one with ``fold_in(key, s)`` keys where a batch cannot be
-fused (the split, the host paths, a batch past the candidate cap).
+the device round chunk by chunk; with ``checkpoint_dir=`` it persists a
+StreamCheckpoint after every delivered chunk (:mod:`repro_torch.api.stream`),
+and :meth:`resume_stream` continues a killed stream from its cursor,
+bit-identically, on any device and in either package.  ``sample_batch``
+draws several graphs through shared fused rounds (sample s's block pair g'
+is graph s * B^2 + g'), or one by one with ``fold_in(key, s)`` keys where
+a batch cannot be fused (the split, the host paths, a batch past the
+candidate cap).
 """
 
 from __future__ import annotations
@@ -24,19 +28,17 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.api import stream as _stream
 from repro_torch.api.config import SamplerConfig
 from repro_torch.api.result import GraphSample, KPGMStats
 from repro_torch.core import dedup, kpgm, magm, prng, quilt
 from repro_torch.core.device import resolve_device
+from repro_torch.dist import chaos
+from repro_torch.dist import checkpoint as _ckpt
 
 # identity plans hold the 2^d config space; past this the host loop is the
 # KPGM backend
 KPGM_PLAN_MAX_NODES = 1 << 20
-
-_RESUME = (
-    "checkpoint_dir= / resume_stream (ROADMAP queue 1 item 7: resilience and serving) "
-    "are not ported yet"
-)
 
 
 class _Session:
@@ -70,11 +72,80 @@ class _Session:
         )
 
     def _chunks(self, chunks) -> Iterator[np.ndarray]:
-        for chunk in chunks:
-            yield self._cast(chunk)
+        """The cast chunks, each behind the ``stream.chunk`` chaos site.  The
+        source, which holds the run's device buffers, is closed when the
+        stream ends, is killed or is dropped, so a killed stream frees them
+        (no frame of the stream keeps the run itself)."""
+        try:
+            for chunk in chunks:
+                chaos.maybe_fail("stream.chunk")
+                yield self._cast(chunk)
+        finally:
+            chunks.close()
 
-    def resume_stream(self, checkpoint_dir: str):
-        raise NotImplementedError(_RESUME)
+    def _run_chunks(self, run: quilt.QuiltRun, chunk_edges: int):
+        self._last_run_slots = run.slots_per_graph
+        return run.iter_chunks(chunk_edges)
+
+    # -- resumable streaming -------------------------------------------
+
+    def _stream_config_digest(self, chunk_edges: int, num_edges: Optional[int]) -> np.ndarray:
+        """Digest of everything the chunk sequence depends on, with the
+        reference's parts in the reference's order (a session's own
+        ``_digest_parts`` after the class name), so that it is bit-equal to
+        the reference's for the same config.  The device is left out, as
+        the reference leaves its mesh out: a stream checkpointed on the card
+        resumes on the CPU, and the other way round.  ``use_kernel`` is the
+        config's value, not the resolved one."""
+        c = self.config
+        return _stream.digest_parts([
+            type(self).__name__, *self._digest_parts(), c.backend, c.oversample, c.max_rounds,
+            c.use_kernel, str(np.dtype(c.dtype)), int(chunk_edges),
+            None if num_edges is None else int(num_edges),
+        ])
+
+    def _emit(self, key, chunk_edges: int, checkpoint_dir: str, state, num_edges: Optional[int]):
+        return _stream.emit(
+            self._stream_raw(key, chunk_edges, num_edges=num_edges), checkpoint_dir, state,
+            slots=lambda: getattr(self, "_last_run_slots", 0),
+        )
+
+    def _checkpointed_stream(
+        self, key, chunk_edges: int, checkpoint_dir: str, num_edges: Optional[int] = None
+    ) -> Iterator[np.ndarray]:
+        state = _stream.initial_state(
+            self._stream_config_digest(chunk_edges, num_edges), key, chunk_edges, num_edges
+        )
+        return self._emit(key, chunk_edges, checkpoint_dir, state, num_edges)
+
+    def resume_stream(self, checkpoint_dir: str) -> Iterator[np.ndarray]:
+        """Continue a checkpointed ``sample_stream`` after an interruption.
+
+        Loads the newest StreamCheckpoint under ``checkpoint_dir`` (written
+        by this package or the reference), re-runs the engine from the
+        persisted key on this session's device, checks the replay of the
+        chunks already delivered against the persisted digest, and yields
+        the rest: [chunks delivered before the fault ‖ resumed chunks] is
+        bit-identical to an uninterrupted stream.  Raises ValueError when
+        the directory holds no checkpoint or one written by a different
+        sampler config, RuntimeError when the replay diverges; a finished
+        stream yields nothing.
+        """
+        step = _ckpt.latest_step(checkpoint_dir)
+        if step is None:
+            raise ValueError(f"no stream checkpoint under {checkpoint_dir!r}")
+        state = _stream.load_state(checkpoint_dir, step, self._key)
+        chunk_edges = int(state["chunk_edges"])
+        num_edges = None if int(state["num_edges"]) < 0 else int(state["num_edges"])
+        if not np.array_equal(self._stream_config_digest(chunk_edges, num_edges), state["config_digest"]):
+            raise ValueError(
+                f"stream checkpoint in {checkpoint_dir!r} was written by a different sampler config "
+                "(config digest mismatch); build the session from the original config to resume"
+            )
+        if int(state["done"]):
+            return iter(())
+        key = _stream.key_from_data(state["key_data"], int(state["key_typed"]))
+        return self._emit(key, chunk_edges, checkpoint_dir, state, num_edges)
 
 
 class MAGMSampler(_Session):
@@ -150,24 +221,38 @@ class MAGMSampler(_Session):
         edges = run.edges()
         return GraphSample(self._cast(edges), self.n, run.stats(edges.shape[0]), key)
 
-    def sample_stream(
-        self, key: Optional[torch.Tensor] = None, *, chunk_edges: int = 1 << 16, checkpoint_dir: Optional[str] = None
-    ) -> Iterator[np.ndarray]:
-        """One graph as ``(chunk_edges, 2)`` chunks (the last may be
-        shorter) whose concatenation equals ``sample(key).edges``.  On the
-        quilting paths each chunk's rows are copied from the device round
-        on their own; the split re-chunks its host edge array."""
-        if checkpoint_dir is not None:
-            raise NotImplementedError(_RESUME)
-        key = self._next_key() if key is None else key
+    def _digest_parts(self) -> list:
+        return [self.F, self.config.split, self.config.bprime]
+
+    def _stream_raw(self, key, chunk_edges: int, num_edges: Optional[int] = None) -> Iterator[np.ndarray]:
+        """The undecorated chunk sequence (``num_edges`` unused: the MAGM
+        edge count is the model's own draw)."""
         if self.F.size == 0:
             return
         if self.split_plan is not None:
             edges, _ = self._split_sample(key)
             chunks = dedup.rechunk_edges([edges], chunk_edges)
         else:
-            chunks = self._run(key, exact_cells=self.config.exact_cells).iter_chunks(chunk_edges)
+            chunks = self._run_chunks(self._run(key, exact_cells=self.config.exact_cells), chunk_edges)
         yield from self._chunks(chunks)
+
+    def sample_stream(
+        self, key: Optional[torch.Tensor] = None, *, chunk_edges: int = 1 << 16, checkpoint_dir: Optional[str] = None
+    ) -> Iterator[np.ndarray]:
+        """One graph as ``(chunk_edges, 2)`` chunks (the last may be
+        shorter) whose concatenation equals ``sample(key).edges``.  On the
+        quilting paths each chunk's rows are copied from the device round
+        on their own; the split re-chunks its host edge array.
+
+        ``checkpoint_dir=`` persists a StreamCheckpoint (atomically, through
+        :mod:`repro_torch.dist.checkpoint`) after every delivered chunk; a
+        stream killed midway continues from its cursor through
+        :meth:`resume_stream`."""
+        key = self._next_key() if key is None else key
+        if checkpoint_dir is None:
+            yield from self._stream_raw(key, chunk_edges)
+        else:
+            yield from self._checkpointed_stream(key, chunk_edges, checkpoint_dir)
 
     def sample_batch(self, num_graphs: int, key: Optional[torch.Tensor] = None) -> List[GraphSample]:
         """``num_graphs`` independent MAGM graphs.  Without the split they
@@ -267,6 +352,18 @@ class KPGMSampler(_Session):
         )
         return GraphSample(self._cast(edges), self.n, stats, key)
 
+    def _digest_parts(self) -> list:
+        return [self.params.thetas.cpu().numpy(), self.n]
+
+    def _engine_chunks(self, key, chunk_edges: int, num_edges: Optional[int]):
+        run = self._engine_run(key, num_edges)
+        if run is None:
+            return dedup.rechunk_edges([self._host_sample(key, num_edges).edges], chunk_edges)
+        return self._run_chunks(run, chunk_edges)
+
+    def _stream_raw(self, key, chunk_edges: int, num_edges: Optional[int] = None) -> Iterator[np.ndarray]:
+        yield from self._chunks(self._engine_chunks(key, chunk_edges, num_edges))
+
     def sample_stream(
         self,
         key: Optional[torch.Tensor] = None,
@@ -277,16 +374,13 @@ class KPGMSampler(_Session):
     ) -> Iterator[np.ndarray]:
         """One KPGM graph as fixed-size chunks whose concatenation equals
         ``sample(key, num_edges=num_edges).edges`` (see
-        :meth:`MAGMSampler.sample_stream`)."""
-        if checkpoint_dir is not None:
-            raise NotImplementedError(_RESUME)
+        :meth:`MAGMSampler.sample_stream`; the ``checkpoint_dir=`` /
+        :meth:`resume_stream` contract, ``num_edges`` included, is shared)."""
         key = self._next_key() if key is None else key
-        run = self._engine_run(key, num_edges)
-        if run is None:
-            chunks = dedup.rechunk_edges([self._host_sample(key, num_edges).edges], chunk_edges)
+        if checkpoint_dir is None:
+            yield from self._stream_raw(key, chunk_edges, num_edges)
         else:
-            chunks = run.iter_chunks(chunk_edges)
-        yield from self._chunks(chunks)
+            yield from self._checkpointed_stream(key, chunk_edges, checkpoint_dir, num_edges=num_edges)
 
     def sample_batch(self, num_graphs: int, key: Optional[torch.Tensor] = None) -> List[GraphSample]:
         """``num_graphs`` independent KPGM graphs through shared fused

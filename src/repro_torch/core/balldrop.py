@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dedup, kpgm, kron, prng, quilt
+from repro_torch.dist import chaos
 from repro_torch.kernels import ops
 
 __all__ = ["balldrop_run", "DISPATCH_COUNTERS"]
@@ -315,6 +316,7 @@ def balldrop_run(
         gids = torch.arange(S, dtype=torch.int32, device=plan.device)
         tdev = torch.from_numpy(targets).to(plan.device)
         for r in range(1 if exact else max_rounds):
+            chaos.maybe_fail("quilt.round")
             ask = budget if exact else dedup.uniform_ask(shortfall, oversample * plan.bd_cost)
             if ask == 0:
                 break
@@ -323,6 +325,7 @@ def balldrop_run(
                 # host top-up finishes the residual
                 break
             a_tot += ask
+            chaos.maybe_fail("quilt.dispatch")  # fatal for a DeviceLoss, as in quilt_run
             outs = _bd_round_body(
                 rkey, gids, tdev, plan, a_tot=a_tot, node_bits=nb, arm=arm, budget=budget
             )

@@ -64,6 +64,7 @@ import torch
 
 from repro_torch.core import dedup, f32math, kpgm, kron, magm, partition, prng
 from repro_torch.core.device import resolve_device
+from repro_torch.dist import chaos
 from repro_torch.kernels import ops
 
 
@@ -574,7 +575,7 @@ def unported_reason(*, mesh=None) -> Optional[str]:
     """Which requested path the port does not run yet, and the ROADMAP
     queue-1 item that will port it; None for a path it runs."""
     if mesh is not None:
-        return "mesh= (ROADMAP queue 1 item 7: resilience and serving)"
+        return "mesh= (ROADMAP queue 1 item 7b: meshes)"
     return None
 
 
@@ -689,6 +690,7 @@ def quilt_run(
         gids = torch.arange(gtot, dtype=torch.int32, device=plan.device)
         tdev = torch.from_numpy(targets).to(plan.device)
         for r in range(1 if exact else max_rounds):
+            chaos.maybe_fail("quilt.round")
             ask = budget if exact else dedup.uniform_ask(shortfall, oversample)
             if ask == 0:
                 break
@@ -697,6 +699,10 @@ def quilt_run(
                 # host loop finishes the residual
                 break
             a_tot += ask
+            # before the round's first launch, so a fault leaves no launch
+            # pending; with no mesh to rebuild (item 7b) a DeviceLoss here
+            # is fatal, as in the reference without a mesh
+            chaos.maybe_fail("quilt.dispatch")
             outs = _round_body(
                 rkey, gids, tdev, plan, a_tot=a_tot, budget=budget, use_kernel=use_kernel
             )

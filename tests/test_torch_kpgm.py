@@ -227,7 +227,7 @@ def test_kpgm_sampler_without_target_over_cap_takes_engine_host_path(ref, monkey
     assert np.array_equal(want.edges, got.edges) and got.num_edges > 0
 
 
-def test_kpgm_sampler_rejects_and_shim(ref):
+def test_kpgm_sampler_rejects_and_shim(ref, tmp_path):
     import jax
     import jax.numpy as jnp
 
@@ -237,8 +237,10 @@ def test_kpgm_sampler_rejects_and_shim(ref):
     with pytest.raises(TypeError):
         KPGMSampler(SamplerConfig(params=interop.from_reference(
             _thetas(6, None), np.zeros((4, 6), np.int8), np.zeros(2))[0], device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        KPGMSampler(SamplerConfig(params=p, device="cpu")).resume_stream("ckpt")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7b"):
+        KPGMSampler(SamplerConfig(params=p, mesh="auto", device="cpu"))
+    with pytest.raises(ValueError, match="no stream checkpoint"):  # resumable streams run (item 7)
+        KPGMSampler(SamplerConfig(params=p, device="cpu")).resume_stream(str(tmp_path / "ckpt"))
     with pytest.warns(DeprecationWarning):
         shim = kpgm.kpgm_sample(prng.PRNGKey(2), p, num_edges=40, device="cpu")
     session = KPGMSampler(SamplerConfig(params=p, device="cpu")).sample(prng.PRNGKey(2), num_edges=40)

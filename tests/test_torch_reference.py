@@ -43,6 +43,10 @@ _REF_MODULES = {
     "naive": "repro.core.naive",
     "magfit": "repro.fit.magfit",
     "paper": "repro.configs.magm_paper",
+    "chaos": "repro.dist.chaos",
+    "ckpt": "repro.dist.checkpoint",
+    "stream": "repro.api.stream",
+    "serve": "repro.launch.serve",
 }
 
 
@@ -118,8 +122,10 @@ import repro_torch, repro_torch.api, repro_torch.interop
 import repro_torch.core.quilt, repro_torch.kernels.ops, repro_torch.configs.magm_paper
 import repro_torch.core.naive, repro_torch.fit.magfit
 import repro_torch.core.balldrop, repro_torch.core.stats, repro_torch.analysis.validate
+import repro_torch.dist.chaos, repro_torch.dist.checkpoint, repro_torch.api.stream
+import repro_torch.launch.serve
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))
 assert not bad, bad
 print('clean')
 """
@@ -135,6 +141,32 @@ def test_port_imports_without_jax_or_reference():
     assert out.stdout.strip() == "clean"
 
 
+_BLOCKED_IMPORT = """
+import importlib, pkgutil, sys
+for name in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):
+    sys.modules[name] = None  # any import of them raises ImportError
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]
+for m in mods:
+    importlib.import_module(m)
+print(" ".join(mods))
+"""
+
+
+def test_whole_port_imports_with_jax_blocked():
+    """Every module of the port imports with ``jax``, ``repro`` and
+    ``ml_dtypes`` made unimportable."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT], env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    mods = set(out.stdout.split())
+    for m in ("repro_torch.core.quilt", "repro_torch.dist.chaos", "repro_torch.dist.checkpoint",
+              "repro_torch.api.stream", "repro_torch.launch.serve", "repro_torch.kernels._build"):
+        assert m in mods, m
+
+
 def test_port_sources_name_no_jax():
     root = os.path.join(SRC, "repro_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")]
@@ -145,7 +177,7 @@ def test_port_sources_name_no_jax():
                 words = line.split()
                 if words[:1] in (["import"], ["from"]) and len(words) > 1:
                     top = words[1].split(".")[0]
-                    assert top not in ("jax", "jaxlib", "repro"), (path, line)
+                    assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), (path, line)
 
 
 def test_threefry_partitionable_flag():

@@ -161,18 +161,28 @@ def test_unported_session_paths_raise(change):
         MAGMSampler(SamplerConfig(params=p, num_nodes=32, device="cpu", **change))
 
 
-def test_unported_run_paths_raise():
+def test_unported_run_paths_raise(tmp_path):
+    """Meshes (ROADMAP queue 1 item 7b) still raise; resumable streams
+    (item 7) run: tests/test_torch_resilience.py holds them against the
+    reference."""
     p = interop.from_reference(
         np.broadcast_to(magm_paper.THETA_1, (5, 2, 2)), np.zeros((8, 5), np.int8), np.zeros(2)
     )[0]
     s = MAGMSampler(SamplerConfig(params=p, num_nodes=32, device="cpu"))
     key = prng.PRNGKey(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7b"):
         quilt.quilt_run(key, s.plan, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        next(s.sample_stream(key, checkpoint_dir="ckpt"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        s.resume_stream("ckpt")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7b"):
+        MAGMSampler(SamplerConfig(params=p, num_nodes=32, device="cpu", mesh="auto"))
+    from repro_torch.core import magm
+
+    s = MAGMSampler(SamplerConfig(params=magm.make_params(magm_paper.THETA_1, 0.5, 5), num_nodes=32, device="cpu"))
+    d = str(tmp_path / "ckpt")
+    chunks = list(s.sample_stream(key, chunk_edges=16, checkpoint_dir=d))
+    assert len(chunks) > 1 and np.array_equal(np.concatenate(chunks), s.sample(key).edges)
+    assert list(s.resume_stream(d)) == []
+    with pytest.raises(ValueError, match="no stream checkpoint"):
+        s.resume_stream(str(tmp_path / "none"))
 
 
 def test_budget_over_device_cap_takes_host_path(monkeypatch):
