@@ -80,7 +80,18 @@ launch counts set to 0 just before and read just after:
   edges equal to sample(), p99 latency within (max_queue + 1) x the longest
   service), 8 requests in turn (p50/p99, edges/s), an InjectedFault retried
   to ok, a DeviceLoss answered 500 then ok, an expired deadline answered
-  408 with no launch, garbage answered 400, and the serve CLI.
+  408 with no launch, garbage answered 400, and the serve CLI;
+- MAGFIT (phase_magfit): at n = 2^10, d = 3 elbo (and elbo_dense through
+  magm_logprob), the M-step statistics, estep, mstep and a known-F magfit
+  on the card against the CPU port, estep and the fit twice bit for bit;
+  benchmarks/bench_fit.py's rows on the card (n = 2^12, d = 4, ~1.45 M
+  exact edges: one 10-step estep with its idle share, a known-F fit of
+  8 EM iterations); the reference's recovery claim (n = 2^12, d = 5,
+  order 4, 24 bootstrap replicates: every canonical theta within 3 sigma);
+  the round trip at the paper's setting (recover of THETA_1, mu = 0.5,
+  n = 2^12 through the session, api.fit_config on its edges, a resample of
+  the fitted config: kernel 1 launched at least twice); one estep and one
+  mstep at n = 2^13, d = 13 (n 2^d = 2^26) with peak memory.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  Output, last three lines: the card's name and power limit as
@@ -108,6 +119,10 @@ builds the kernels and runs the split, batch and stream phases and the
     python3 chip_smoke.py --serve
 
 builds the kernels and runs the resilience and serving phase alone.
+
+    python3 chip_smoke.py --fit
+
+builds the kernels and runs the MAGFIT phase alone.
 """
 
 from __future__ import annotations
@@ -137,7 +152,9 @@ from repro_torch.configs.magm_paper import DEFAULT_MU, THETA_1, THETA_2  # noqa:
 from repro_torch.core import balldrop, f32math, kpgm, magm, naive, prng, quilt  # noqa: E402
 from repro_torch.dist import chaos  # noqa: E402
 from repro_torch.dist import checkpoint as ckpt_mod  # noqa: E402
+from repro_torch.api import fit_config as api_fit_config  # noqa: E402
 from repro_torch.fit import magfit  # noqa: E402
+from repro_torch.fit import recover as fit_recover  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bernoulli_tile as bt  # noqa: E402
 from repro_torch.kernels import magm_logprob as ml  # noqa: E402
@@ -2141,6 +2158,297 @@ def phase_resilience_and_serving(device, sampler) -> dict:
     return out
 
 
+# --- MAGFIT: variational EM, edge ingest and the round trip ---
+
+THETA_FIT = np.array([[0.25, 0.55], [0.55, 0.82]], dtype=np.float32)  # benchmarks/bench_fit.py's
+FIT_CHECK = (10, 3)  # (log2 n, d): the card against the CPU port, bench_fit's thetas
+FIT_BENCH = (12, 4)  # bench_fit.py's setting: ~1.45 M exact edges
+FIT_CLAIM = (12, 5)  # tests/test_magfit.py TestRecovery's setting
+FIT_ROUNDTRIP_LOG2_N = 12  # the paper's THETA_1, mu = 0.5, d = log2 n
+# the round trip's fits run one EM iteration (and the hardening refit) of
+# the default options: at d = 12 an iteration takes ~6 s on the card (40
+# E-step steps of ~83 ms, an M-step of ~2.8 s), and the phase's share of
+# the run is ~90 s
+FIT_ROUNDTRIP_OPTS = dict(em_iters=1)
+FIT_CAP_LOG2_N = 13  # n 2^d = 2^26 at d = 13: FIT_STATE_CAP / 2
+FIT_CLAIM_TOL = 2e-3  # TestRecovery's deterministic error budget, folded into the SE
+# a known-F fit stops at iteration 2 by this relative tol: after iteration 1
+# the ELBO gains ~1e-5 a step, within float noise of each other, so with the
+# default tol the stop could differ between two evaluations
+FIT_KNOWN_F = dict(order=3, em_iters=3, tol=1e-2)
+# tolerances of tests/test_torch_magfit.py (see its notes for the fits')
+FIT_RTOL, FIT_LOGITS_ATOL, FIT_MSTEP_ATOL, FIT_MU_ATOL = 1e-5, 1e-3, 1e-4, 1e-6
+FIT_KNOWN_F_TRACE_RTOL, FIT_KNOWN_F_THETA_ATOL = 3e-5, 3e-2
+
+
+def fit_graph(log2_n: int, d: int, theta, attr_seed: int, edge_seed: int):
+    """(params, F, edges): attributes from PRNGKey(attr_seed) at mu = 0.5 and
+    an exact per-pair Bernoulli graph (fit.recover.exact_edges, host)."""
+    params = magm.make_params(theta, 0.5, d)
+    F = magm.sample_attributes(prng.PRNGKey(attr_seed), 1 << log2_n, params.mu, device="cpu").numpy()
+    return params, F, fit_recover.exact_edges(params, F, edge_seed)
+
+
+def within(what: str, got, want, rtol: float = 0.0, atol: float = 0.0) -> float:
+    """max |got - want|, raising past atol + rtol |want|."""
+    g = np.asarray(got.detach().cpu() if isinstance(got, torch.Tensor) else got, dtype=np.float64)
+    w = np.asarray(want.detach().cpu() if isinstance(want, torch.Tensor) else want, dtype=np.float64)
+    err = np.abs(g - w)
+    if g.shape != w.shape or not np.all(np.isfinite(g)) or not np.all(err <= atol + rtol * np.abs(w)):
+        raise AssertionError(f"{what}: max |diff| {err.max() if err.size else None} past rtol={rtol} atol={atol}")
+    return float(err.max())
+
+
+def same_fit(what: str, a, b) -> None:
+    if not (np.array_equal(a.elbo_trace, b.elbo_trace) and torch.equal(a.params.thetas, b.params.thetas)
+            and torch.equal(a.params.mu, b.params.mu) and np.array_equal(a.phi, b.phi)
+            and (a.iterations, a.converged) == (b.iterations, b.converged)):
+        raise AssertionError(f"{what}: two fits with the same key differ")
+
+
+def fit_cross_device(device) -> dict:
+    """Gates 1 and 2 at n = 2^10, d = 3: elbo (and elbo_dense through
+    magm_logprob), edge_cell_counts, penalty_coeffs, estep(steps=5),
+    mstep(steps=4) and a known-F magfit on the card against the CPU port;
+    estep and the fit twice on the card, bit for bit."""
+    log2_n, d = FIT_CHECK
+    n = 1 << log2_n
+    _, F, edges = fit_graph(log2_n, d, THETA_FIT, SEED, SEED + 1)
+    cpu, gpu = magfit.shard_edges(edges, n, device="cpu"), magfit.shard_edges(edges, n, device=device)
+    rng = np.random.default_rng(SEED + 400)
+    phi = rng.uniform(0.05, 0.95, (n, d)).astype(np.float32)
+    pl = (0.1 * rng.standard_normal((n, d))).astype(np.float32)
+    th = rng.uniform(0.1, 0.9, (d, 2, 2)).astype(np.float32)
+    mu = np.full(d, 0.5, dtype=np.float32)
+    err = {}
+    e_gpu = magfit.elbo(phi, th, mu, gpu, device=device)
+    err["elbo"] = within("elbo", e_gpu, magfit.elbo(phi, th, mu, cpu, device="cpu"), FIT_RTOL)
+    ops.reset_kernel_launches()
+    dense = magfit.elbo_dense(phi, th, mu, edges, n, use_kernel=True, device=device)
+    torch.cuda.synchronize()
+    k3 = ops.kernel_launches()["magm_logprob"]
+    err["elbo_dense_kernel"] = within("elbo_dense (magm_logprob) vs elbo", dense, e_gpu, FIT_RTOL)
+    for name, fn in (("edge_cell_counts", lambda dt, dev: magfit.edge_cell_counts(phi, dt, device=dev)),
+                     ("penalty_coeffs", lambda dt, dev: torch.stack(magfit.penalty_coeffs(phi, th, dt, order=3,
+                                                                                           device=dev)))):
+        err[name] = within(name, fn(gpu, device), fn(cpu, "cpu"), FIT_RTOL)
+    e1 = magfit.estep(pl, th, mu, gpu, steps=5, device=device)
+    e2 = magfit.estep(pl, th, mu, gpu, steps=5, device=device)
+    ec = magfit.estep(pl, th, mu, cpu, steps=5, device="cpu")
+    if not all(torch.equal(a, b) for a, b in zip(e1, e2)):
+        raise AssertionError("estep: two runs on the card differ")
+    err["estep_logits"] = within("estep logits", e1[0], ec[0], atol=FIT_LOGITS_ATOL)
+    err["estep_value"] = within("estep value", e1[1], ec[1], FIT_RTOL)
+    m_gpu = magfit.mstep(pl, th, mu, gpu, steps=4, device=device)
+    m_cpu = magfit.mstep(pl, th, mu, cpu, steps=4, device="cpu")
+    err["mstep_thetas"] = within("mstep thetas", m_gpu[0], m_cpu[0], atol=FIT_MSTEP_ATOL)
+    err["mstep_mu"] = within("mstep mu", m_gpu[1], m_cpu[1], atol=FIT_MU_ATOL)
+    kw = dict(key=prng.PRNGKey(SEED + 2), options=magfit.FitOptions(**FIT_KNOWN_F), phi_init=F.astype(np.float32),
+              fit_phi=False)
+    fits = [magfit.magfit(edges, n, d, device=device, **kw) for _ in range(2)]
+    same_fit("known-F magfit", *fits)
+    fc = magfit.magfit(edges, n, d, device="cpu", **kw)
+    if (fits[0].iterations, fits[0].converged) != (fc.iterations, fc.converged):
+        raise AssertionError(f"known-F magfit: card {fits[0].iterations, fits[0].converged} "
+                             f"CPU {fc.iterations, fc.converged}")
+    err["magfit_trace"] = within("magfit trace", fits[0].elbo_trace, fc.elbo_trace, FIT_KNOWN_F_TRACE_RTOL)
+    err["magfit_thetas"] = within("magfit thetas", fits[0].params.thetas, fc.params.thetas,
+                                  atol=FIT_KNOWN_F_THETA_ATOL)
+    log(f"fit card vs CPU n=2^{log2_n} d={d} edges={edges.shape[0]}: max_abs_err {json.dumps(err)}; "
+        f"estep and known-F magfit repeated bit for bit ({fits[0].iterations} iterations, "
+        f"converged={fits[0].converged}); elbo_dense launches magm_logprob={k3}")
+    return {"magm_logprob": k3}
+
+
+def fit_bench(device) -> dict:
+    """Gate 3, bench_fit.py's rows on the card: one estep (10 steps, order
+    3) and a known-F magfit (em_iters=8); launches no kernel."""
+    log2_n, d = FIT_BENCH
+    n = 1 << log2_n
+    t = time.perf_counter()
+    _, F, edges = fit_graph(log2_n, d, THETA_FIT, SEED, SEED + 1)
+    log(f"fit bench: exact_edges s={time.perf_counter() - t}")
+    e = edges.shape[0]
+    data = magfit.shard_edges(edges, n, device=device)
+    pl = 0.1 * prng.normal(prng.PRNGKey(1), (n, d), device=device)
+    thetas = torch.full((d, 2, 2), 0.4, device=device)
+    mu = torch.full((d,), 0.5, device=device)
+    est = lambda: magfit.estep(pl, thetas, mu, data, steps=10, order=3, device=device)  # noqa: E731
+    est()
+    torch.cuda.reset_peak_memory_stats()
+    ms = statistics.median(timed_runs(lambda _: est(), range(2)))
+    peak = torch.cuda.max_memory_allocated()
+    # the idle share of a 3-step call: tracing a 10-step one takes ~13 s
+    t = time.perf_counter()
+    _, wall, busy, top = profiled_call(lambda: magfit.estep(pl, thetas, mu, data, steps=3, order=3, device=device))
+    log(f"fit bench: profiled estep (3 steps) s={time.perf_counter() - t}")
+    rows = [{"name": "fit_estep", "us_per_call": ms * 1e3,
+             "derived": f"n={n};edges={e};steps=10;order=3;ms_per_edge={ms / e:.9f}"}]
+    log(f"fit_estep: ms={ms} ms_per_step={ms / 10} peak_bytes={peak} idle_share (3 steps)={1 - busy / wall} "
+        f"(profiled wall {wall} ms, device {busy} ms) top={top}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fit = magfit.magfit(edges, n, d, key=prng.PRNGKey(2), options=magfit.FitOptions(order=3, em_iters=8),
+                        phi_init=F.astype(np.float32), fit_phi=False, device=device)
+    t_em = time.perf_counter() - t
+    tr = fit.elbo_trace
+    if not (np.all(np.isfinite(tr)) and np.all(np.diff(tr) >= 0)):
+        raise AssertionError(f"fit_em: trace {tr}")
+    rows.append({"name": "fit_em", "us_per_call": t_em * 1e6,
+                 "derived": f"n={n};edges={e};iters={fit.iterations};converged={fit.converged};"
+                            f"elbo_gain={float(tr[-1] - tr[0]):.1f}"})
+    for row in rows:
+        log("bench row " + json.dumps({"schema": "qkg-bench-v1", **row}))
+    return {}
+
+
+def fit_claim(device) -> dict:
+    """Gate 4, the reference's recovery claim (TestRecovery, key 0): a
+    known-F fit of an exact graph at n = 2^12, d = 5, order 4, 6 EM
+    iterations; every canonical theta within 3 sigma of the truth,
+    sigma = sqrt(SE^2 + 0.002^2) from 24 bootstrap replicates."""
+    log2_n, d = FIT_CLAIM
+    params = magm.make_params(THETA_FIT, 0.5, d)
+    t = time.perf_counter()
+    rep = fit_recover.recover(params, 1 << log2_n, key=prng.PRNGKey(0), options=magfit.FitOptions(order=4, em_iters=6),
+                              known_F=True, exact_observed=True, num_boot=24, device=device)
+    secs = time.perf_counter() - t
+    truth = fit_recover.canonicalize(params.thetas, params.mu)[0]
+    z = np.abs(rep.theta_hat - truth) / np.sqrt(rep.theta_se**2 + FIT_CLAIM_TOL**2)
+    if not (np.all(np.diff(rep.fit.elbo_trace) >= 0) and z.max() < 3.0):
+        raise AssertionError(f"recovery claim: max z {z.max()} trace {rep.fit.elbo_trace}")
+    log(f"recovery claim n=2^{log2_n} d={d}: edges={rep.edges.shape[0]} max_z={z.max()} "
+        f"iterations={rep.fit.iterations} converged={rep.fit.converged} se_max={rep.theta_se.max()} seconds={secs}")
+    return {}  # exact_observed: the host sampler, no kernel
+
+
+def k1_launches(fn):
+    """(fn(), kernel 1's launches in it)."""
+    before = ops.kernel_launches()["quilt_prng_descent_lookup"]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.kernel_launches()["quilt_prng_descent_lookup"] - before
+
+
+def fit_round_trip(device) -> dict:
+    """Gate 5, the round trip through the session at the paper's setting
+    (THETA_1, mu = 0.5, n = 2^12, d = 12, FIT_ROUNDTRIP_OPTS): recover's
+    observed sample on the card and its latent fit, api.fit_config on the
+    same edges and one resample of the fitted config; then the known-F
+    round trip (recover(known_F=True)) and a resample of its config by the
+    default session.  Every quilting sample must launch kernel 1, and the
+    round trip at least twice.
+
+    The latent fit's config is resampled by the section-5 split
+    (split=True): a latent fit at d = log2 n drives some attributes' mu to
+    the clip (0.001 or 0.999; the reference's fit does the same), so few
+    configurations hold many nodes each, B is large, and the unobserved
+    theta cells keep their starting values; the default session's
+    proposal of B^2 KPGM graphs over all 4^d cells then asks the host path
+    for more candidates than the card holds.  The split samples such heavy
+    configurations by binomials and quilts only the light nodes (kernel 1
+    runs only if there are any)."""
+    log2_n = FIT_ROUNDTRIP_LOG2_N
+    n = 1 << log2_n
+    params = magm.make_params(THETA_1, DEFAULT_MU, log2_n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    k1 = {}
+    t0 = time.perf_counter()
+    opts = magfit.FitOptions(**FIT_ROUNDTRIP_OPTS)
+    rep, k1["observed"] = k1_launches(lambda: fit_recover.recover(params, n, backend="auto", known_F=False,
+                                                                  options=opts, device=device))
+    t1 = time.perf_counter()
+    cfg, fit = api_fit_config(rep.edges, n, log2_n, options=opts, device=device)
+    t2 = time.perf_counter()
+    resampled, k1["split_resample"] = k1_launches(
+        lambda: MAGMSampler(cfg.replace(split=True)).sample(prng.PRNGKey(SEED + 5)))
+    t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    known, k1["known_f_observed"] = k1_launches(lambda: fit_recover.recover(params, n, known_F=True, options=opts,
+                                                                            device=device))
+    t4 = time.perf_counter()
+    known_resampled, k1["known_f_resample"] = k1_launches(
+        lambda: MAGMSampler(known.config).sample(prng.PRNGKey(SEED + 5)))
+    t5 = time.perf_counter()
+    cfgs = np.unique(magm.configs_from_attributes(torch.from_numpy(cfg.F)).numpy(), return_counts=True)[1]
+    log(f"round trip fitted config: mu={np.round(fit.params.mu.numpy(), 3).tolist()} configs={cfgs.size} "
+        f"max_multiplicity={cfgs.max()} split stats={resampled.stats}")
+    for f in (rep.fit, fit, known.fit):
+        if not (np.all(np.isfinite(f.elbo_trace)) and np.all(np.diff(f.elbo_trace) >= 0)
+                and torch.isfinite(f.params.thetas).all() and np.isfinite(f.phi).all()):
+            raise AssertionError(f"round trip: fit not finite or trace decreasing: {f.elbo_trace}")
+    check_edges(resampled.edges, n, "round trip split resample")
+    check_edges(known_resampled.edges, n, "round trip known-F resample")
+    quilted = {"observed": True, "split_resample": resampled.stats.light_nodes > 0,
+               "known_f_observed": True, "known_f_resample": True}
+    if any(k1[k] < 1 for k, q in quilted.items() if q) or sum(k1.values()) < 2:
+        raise AssertionError(f"round trip: quilt_prng_descent_lookup launches {k1}")
+    # the observed sample alone, timed on a session of the true config
+    observed = MAGMSampler(rep.true_config)
+    sample_ms = statistics.median(timed_runs(lambda k: observed.sample(prng.PRNGKey(k)), range(2)))
+    data = magfit.shard_edges(rep.edges, n, device=device)
+    pl = magfit._logit(torch.from_numpy(fit.phi).to(device))
+    th, mu = fit.params.thetas.to(device), fit.params.mu.to(device)
+    steps = 10
+    e_ms = timed_runs(lambda _: magfit.estep(pl, th, mu, data, steps=steps, device=device), [0])[0] / steps
+    m_ms = timed_runs(lambda _: magfit.mstep(pl, th, mu, data, device=device), [0])[0]
+    _, wall, busy, top = profiled_call(lambda: magfit.estep(pl, th, mu, data, steps=3, device=device))
+    log(f"round trip n=2^{log2_n} d={log2_n}: observed={rep.edges.shape[0]} split resample={resampled.num_edges} "
+        f"known-F resample={known_resampled.num_edges} edges; recover s={t1 - t0} (iterations="
+        f"{rep.fit.iterations} converged={rep.fit.converged}) fit_config s={t2 - t1} (iterations={fit.iterations} "
+        f"converged={fit.converged} trace {fit.elbo_trace[0]} -> {fit.elbo_trace[-1]}) split resample ms "
+        f"(session and sample)={(t3 - t2) * 1e3} known-F recover s={t4 - t3} (iterations={known.fit.iterations}) "
+        f"known-F resample ms (session and sample)={(t5 - t4) * 1e3} sample ms={sample_ms}; "
+        f"per E-step step ms={e_ms} per M-step ms={m_ms}; E-step (3 steps) idle_share={1 - busy / wall} "
+        f"(wall {wall} ms, device {busy} ms) top={top}; latent part peak_bytes={peak}; "
+        f"launches quilt_prng_descent_lookup={json.dumps(k1)}")
+    return {"quilt_prng_descent_lookup": sum(k1.values())}
+
+
+def fit_at_cap(device) -> dict:
+    """Gate 6: one estep(steps=5) and one mstep at n = 2^13, d = 13 (THETA_1,
+    mu = 0.5; n 2^d = 2^26), on the session's sample, timed, with peak
+    memory; returns kernel 1's launches in the sample."""
+    log2_n = FIT_CAP_LOG2_N
+    n = 1 << log2_n
+    ops.reset_kernel_launches()
+    edges = MAGMSampler(paper_config(log2_n, device)).sample(prng.PRNGKey(SEED + 6)).edges
+    launches = ops.kernel_launches()["quilt_prng_descent_lookup"]
+    data = magfit.shard_edges(edges, n, device=device)
+    pl, th, mu = magfit.init_state(prng.PRNGKey(SEED + 7), n, log2_n, edges.shape[0], device=device)
+    out = {}
+    for name, fn in (("estep", lambda: magfit.estep(pl, th, mu, data, steps=5, device=device)),
+                     ("mstep", lambda: magfit.mstep(pl, th, mu, data, device=device))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = ((time.perf_counter() - t) * 1e3, torch.cuda.max_memory_allocated())
+        if not all(torch.isfinite(x).all() for x in res):
+            raise AssertionError(f"{name} at the cap: not finite")
+    log(f"fit at the cap n=2^{log2_n} d={log2_n} edges={edges.shape[0]}: "
+        + " ".join(f"{k} ms={v[0]} peak_bytes={v[1]}" for k, v in out.items()))
+    return {"quilt_prng_descent_lookup": launches}
+
+
+def phase_magfit(device) -> dict:
+    """MAGFIT on the card, gates 1-6 (each function's docstring); returns
+    this phase's kernel launches (each part returns its own) and logs each
+    part's seconds."""
+    secs, launches = {}, {"quilt_prng_descent_lookup": 0, "magm_logprob": 0}
+    for name, fn in (("cross_device", fit_cross_device), ("bench", fit_bench), ("claim", fit_claim),
+                     ("round_trip", fit_round_trip), ("cap", fit_at_cap)):
+        t = time.perf_counter()
+        for kernel, count in fn(device).items():
+            launches[kernel] += count
+        secs[name] = time.perf_counter() - t
+    log(f"magfit phases: seconds={json.dumps(secs)} total={sum(secs.values())} launches={json.dumps(launches)}")
+    return launches
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2168,6 +2476,13 @@ def main(argv) -> int:
         log(f"resilience and serving seconds={time.perf_counter() - t}")
         log(nvidia_smi())
         log(json.dumps({"serve": res}))
+        return 0
+    if argv == ["--fit"]:
+        t = time.perf_counter()
+        fit = phase_magfit(device)
+        log(f"magfit seconds={time.perf_counter() - t}")
+        log(nvidia_smi())
+        log(json.dumps({"magfit": fit}))
         return 0
     if argv == ["--split"]:
         split = phase_split_and_batches(device, MAGMSampler(paper_config(FULL_LOG2_N, device)))
@@ -2199,6 +2514,7 @@ def main(argv) -> int:
     split = phase_split_and_batches(device, sampler)
     phase_validation_suite(device)
     phase_resilience_and_serving(device, sampler)
+    fit_launches = phase_magfit(device)
     log(f"balldrop launches: n=2^{FULL_LOG2_N} {bd_launches} n=2^{HOST_LOG2_N} {bd_host_launches}")
 
     kernels = [
@@ -2207,7 +2523,8 @@ def main(argv) -> int:
             "route": "cuda",
             "source": "src/repro_torch/csrc/quilt_prng_descent_lookup.cu",
             "replaces": "src/repro/kernels/quadrant_descent.py:516",
-            "launches": full["launches"],
+            # the main path's exact sample, and MAGFIT's round trip and cap sample
+            "launches": full["launches"] + fit_launches["quilt_prng_descent_lookup"],
             "max_abs_err": max(check["max_abs_err"], bd_err, split["max_abs_err"]),
             "ms": full["ms"],
             "plain_ms": full["plain_ms"],
@@ -2227,9 +2544,10 @@ def main(argv) -> int:
             "route": "cuda",
             "source": "src/repro_torch/csrc/magm_logprob.cu",
             "replaces": "src/repro/kernels/magm_logprob.py:46",
-            # its user path: one (n, n) launch per dense scoring call (the
-            # 256 launches of the sum-Q walk are this script's own check)
-            "launches": dense_launches,
+            # its user path: one (n, n) launch per dense scoring call, and
+            # MAGFIT's elbo_dense check (the 256 launches of the sum-Q walk
+            # are this script's own check)
+            "launches": dense_launches + fit_launches["magm_logprob"],
             **tiles["magm_logprob"],
         },
         {

@@ -102,7 +102,12 @@ def bilinear_decompose(thetas: torch.Tensor, eps: float = 1e-30) -> BilinearLogT
     """The reference's float32 terms bit for bit: its log (``f32math.log``)
     of the clipped thetas, and c0 summed from level 0 up, as its compiled
     reduction runs."""
-    logt = f32math.log(torch.clamp(torch.as_tensor(thetas, dtype=torch.float32), eps, 1.0))
+    return bilinear_from_log(f32math.log(torch.clamp(torch.as_tensor(thetas, dtype=torch.float32), eps, 1.0)))
+
+
+def bilinear_from_log(logt: torch.Tensor) -> BilinearLogTheta:
+    """The bilinear terms of (d, 2, 2) log-thetas (MAGFIT passes logs it
+    can differentiate)."""
     t00, t01 = logt[:, 0, 0], logt[:, 0, 1]
     t10, t11 = logt[:, 1, 0], logt[:, 1, 1]
     return BilinearLogTheta(

@@ -8,7 +8,9 @@ same graph is the initiator thetas, the attribute matrix and the key.
 :func:`from_reference` takes them as the numpy arrays the JAX package
 holds and returns the port's counterparts.  MAGFIT's state goes the same
 way: its soft attributes ``phi`` ((n, d) float32 Bernoulli means) take the
-place of the hard attributes and come back unchanged.
+place of the hard attributes and come back unchanged, and a whole fit
+crosses with :func:`fit_from_reference` and :func:`fit_to_reference`, so
+that either package can bootstrap, canonicalize or resample the other's.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import kpgm, magm
+from repro_torch.fit.magfit import FitResult
 
 
 def from_reference(
@@ -56,3 +59,32 @@ def kpgm_from_reference(thetas: np.ndarray, key_data: np.ndarray) -> Tuple[kpgm.
     if th.ndim != 3 or th.shape[1:] != (2, 2):
         raise ValueError(f"thetas must be (d, 2, 2), got {th.shape}")
     return kpgm.KPGMParams(torch.from_numpy(th.copy())), _key(key_data)
+
+
+def fit_from_reference(fit) -> FitResult:
+    """The port's :class:`FitResult` from a reference ``FitResult`` (read
+    through ``numpy.asarray``: float32 thetas and mu as CPU tensors, phi
+    float32, the trace float64)."""
+    thetas = np.asarray(fit.params.thetas, dtype=np.float32)
+    mu = np.asarray(fit.params.mu, dtype=np.float32)
+    return FitResult(
+        params=magm.MAGMParams(torch.from_numpy(thetas.copy()), torch.from_numpy(mu.copy())),
+        phi=np.asarray(fit.phi, dtype=np.float32).copy(),
+        elbo_trace=np.asarray(fit.elbo_trace, dtype=np.float64).copy(),
+        iterations=int(fit.iterations),
+        converged=bool(fit.converged),
+    )
+
+
+def fit_to_reference(fit: FitResult) -> dict:
+    """A port :class:`FitResult` as numpy values under the reference
+    ``FitResult``'s field names, ``params`` as the ``(thetas, mu)`` pair of
+    float32 arrays its ``MAGMParams`` takes."""
+    return dict(
+        params=(fit.params.thetas.detach().cpu().numpy().astype(np.float32),
+                fit.params.mu.detach().cpu().numpy().astype(np.float32)),
+        phi=np.asarray(fit.phi, dtype=np.float32).copy(),
+        elbo_trace=np.asarray(fit.elbo_trace, dtype=np.float64).copy(),
+        iterations=int(fit.iterations),
+        converged=bool(fit.converged),
+    )

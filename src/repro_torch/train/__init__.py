@@ -1,0 +1,2 @@
+"""repro_torch.train — AdamW with float32 masters (:mod:`optimizer`), the
+update MAGFIT's M-step refines the thetas with."""

@@ -42,6 +42,10 @@ _REF_MODULES = {
     "ops": "repro.kernels.ops",
     "naive": "repro.core.naive",
     "magfit": "repro.fit.magfit",
+    "ingest": "repro.fit.ingest",
+    "recover": "repro.fit.recover",
+    "optimizer": "repro.train.optimizer",
+    "pipeline": "repro.data.pipeline",
     "paper": "repro.configs.magm_paper",
     "chaos": "repro.dist.chaos",
     "ckpt": "repro.dist.checkpoint",
@@ -124,6 +128,8 @@ import repro_torch.core.naive, repro_torch.fit.magfit
 import repro_torch.core.balldrop, repro_torch.core.stats, repro_torch.analysis.validate
 import repro_torch.dist.chaos, repro_torch.dist.checkpoint, repro_torch.api.stream
 import repro_torch.launch.serve
+import repro_torch.train.optimizer, repro_torch.data.pipeline
+import repro_torch.fit, repro_torch.fit.ingest, repro_torch.fit.recover
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))
 assert not bad, bad
@@ -163,7 +169,9 @@ def test_whole_port_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
     for m in ("repro_torch.core.quilt", "repro_torch.dist.chaos", "repro_torch.dist.checkpoint",
-              "repro_torch.api.stream", "repro_torch.launch.serve", "repro_torch.kernels._build"):
+              "repro_torch.api.stream", "repro_torch.launch.serve", "repro_torch.kernels._build",
+              "repro_torch.train.optimizer", "repro_torch.data.pipeline", "repro_torch.fit.ingest",
+              "repro_torch.fit.recover"):
         assert m in mods, m
 
 
