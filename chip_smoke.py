@@ -91,7 +91,20 @@ launch counts set to 0 just before and read just after:
   the round trip at the paper's setting (recover of THETA_1, mu = 0.5,
   n = 2^12 through the session, api.fit_config on its edges, a resample of
   the fitted config: kernel 1 launched at least twice); one estep and one
-  mstep at n = 2^13, d = 13 (n 2^d = 2^26) with peak memory.
+  mstep at n = 2^13, d = 13 (n 2^d = 2^26) with peak memory;
+- LM serving, dense family (phase_lm; no CUDA kernel of its own: PyTorch
+  ops in a layer loop): serve_lm at the reference CLI's default, full
+  olmo-1b (16 layers, d = 2048, 1.18 B params) in bf16, batch 4, prompt
+  32, 16 generated tokens; prefill and decode-step ms by CUDA events (as
+  the loop sees them, and behind a spin kernel), the generation's
+  tokens/s, a decode step's idle share, peak memory, each beside its
+  bound (analysis.roofline: the decode step's weights and cache over the
+  HBM rate); gates: finite logits, decode parity at full width (0.05 x
+  max|logit|), the four dense smoke configs card == CPU port in float32
+  (no TF32) and bf16 to the CPU tests' bounds, one float32 prefill of
+  full-width olmo-1b card == CPU port, the chunked weight draw on the card
+  bit-equal to the CPU's, and dedup.segmented_unique card == CPU on the
+  n = 2^12 plan's candidate stream.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  Output, last three lines: the card's name and power limit as
@@ -123,10 +136,18 @@ builds the kernels and runs the resilience and serving phase alone.
     python3 chip_smoke.py --fit
 
 builds the kernels and runs the MAGFIT phase alone.
+
+    python3 chip_smoke.py --lm
+
+builds the kernels and runs the LM phase, then serve_lm at full width for
+qwen3-14b (40 layers, ~28 GB of bf16 weights) and yi-9b (48 layers), and
+the serve loop for deepseek-67b at full width with its depth cut to
+LM_DEEPSEEK_LAYERS of 95 (one card holds 80 GB).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import json
 import os
@@ -146,10 +167,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.analysis import validate  # noqa: E402
+from repro_torch.analysis.roofline import (  # noqa: E402
+    BF16_FLOPS_PER_S, HBM_BYTES_PER_S, descent_bound_ms, kernel_bound_ms, model_flops, model_min_bytes,
+    native_bound_ms, tile_bound_ms, uniform_bound_ms,
+)
 from repro_torch.api import KPGMSampler, MAGMSampler, SamplerConfig  # noqa: E402
 from repro_torch.api import stream as stream_mod  # noqa: E402
+from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.magm_paper import DEFAULT_MU, THETA_1, THETA_2  # noqa: E402
-from repro_torch.core import balldrop, f32math, kpgm, magm, naive, prng, quilt  # noqa: E402
+from repro_torch.core import balldrop, dedup, f32math, kpgm, magm, naive, prng, quilt  # noqa: E402
 from repro_torch.dist import chaos  # noqa: E402
 from repro_torch.dist import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.api import fit_config as api_fit_config  # noqa: E402
@@ -160,6 +187,10 @@ from repro_torch.kernels import bernoulli_tile as bt  # noqa: E402
 from repro_torch.kernels import magm_logprob as ml  # noqa: E402
 from repro_torch.kernels import quadrant_descent as qd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
+from repro_torch.models import transformer as lm_transformer  # noqa: E402
+from repro_torch.train import steps as lm_steps  # noqa: E402
 
 FULL_LOG2_N = 15  # the largest paper configuration the exact path runs
 CHECK_LOG2_N = 12  # tables fit shared memory; small enough for the CPU
@@ -184,22 +215,12 @@ KPGM_BATCH_D = 16  # KPGMSampler.sample_batch(4) at size: ~1.2 M edges a member,
 # warm repeats of the n = 2^16 quilt host session and the KPGM d = 20 host
 # loop: one keeps the whole script within half its 1200 s limit
 OLD_HOST_WARM = 1
-# a Philox4x32-10 call: 10 rounds of 4 multiplies and 4 XORs; the round keys
-# depend on the seed alone, so the kernel computes them outside the calls
-PHILOX_OPS = 10 * 8
 
 KERNELS = (
     "quilt_prng_descent_lookup", "quadrant_descent_prng", "magm_logprob", "bernoulli_tile",
     "quadrant_descent", "quilt_descent_lookup", "quadrant_descent_native",
 )
 
-# H100 SXM peaks: HBM 3.35 TB/s (NVIDIA data sheet); 32-bit operations at
-# 128 lanes per SM x 132 SMs x 1.98 GHz = 33.5 T ops/s, half the 67 TFLOP/s
-# float32 rate (which counts an FMA as two): integer multiplies issue on the
-# FMA pipe beside the 64 INT32 lanes, so no mix of 32-bit ops goes faster
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 128 * 132 * 1.98e9
-FP32_FLOPS_PER_S = 67e12  # outside the tensor cores, an FMA counted as two
 SPIN_CYCLES_PER_S = 1.98e9  # SM clock at boost: a spin of this many cycles lasts >= 1 s
 
 
@@ -277,22 +298,6 @@ def profiled_kernel_ms(fn, reps: int, kernel: str):
     if count != reps:
         log(f"profiler: {count} launches of {kernel} traced in {reps} calls")
     return us / 1e3 / count if us > 0 else None
-
-
-def kernel_bound_ms(plan: quilt.QuiltPlan, rows: int) -> tuple:
-    """Least time for the kernel's work on this card: its int32 operations
-    at the int32 peak, or its bytes (outputs written once, inputs read once)
-    at the HBM rate, whichever is larger.  Operations per row, counted from
-    the source: a level's counter hash 20, the uniform 3, the quadrant
-    compares 5, the bit updates 5, loop control 2 (35 per level); a search
-    step 10, twice per row; 80 for the row decode, block decode and stores.
-    The searches run a fixed number of steps, so the count does not depend
-    on the data."""
-    steps = max(plan.table_cfg.shape[1] - 1, 1).bit_length() + 1
-    ops_ = rows * (35 * plan.d + 2 * 10 * steps + 80)
-    bytes_ = rows * 16 + plan.table_cfg.numel() * 8 + plan.num_graphs * 4 + plan.d * 16
-    t_ops, t_bytes = ops_ / INT32_OPS_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def phase_kernel_vs_plain(device) -> dict:
@@ -449,26 +454,6 @@ def phase_build() -> None:
             log(f"    ptxas: {line}")
     qd._library(), qd._prng_library(), ml._library(), bt._library()
     qd._descent_library(), qd._lookup_library(), qd._native_library()
-
-
-def tile_bound_ms(M: int, N: int, d: int, cell_bytes: int) -> tuple:
-    """Least time for a log-Q tile: its bytes (cell_bytes per output cell,
-    each attribute row read once) at the HBM rate, or its float32 work (d
-    FMAs per cell for the product, d for each of the M row and N column
-    terms, 3 adds per cell) at the float32 peak, whichever is larger."""
-    bytes_ = M * N * cell_bytes + (M + N) * d * 4 + 3 * d * 4 + 4
-    flops = 2 * M * N * d + 2 * (M + N) * d + 3 * M * N
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
-
-
-def descent_bound_ms(slots: int, d: int) -> tuple:
-    """Least time for quadrant_descent_prng: ~35 int32 operations per level
-    (counted as for quilt_prng_descent_lookup) plus ~10 per slot, or 8 B of
-    output per slot, whichever is larger."""
-    t_ops = slots * (35 * d + 10) / INT32_OPS_PER_S * 1e3
-    t_bytes = (slots * 8 + d * 16) / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def band_mismatches(got, want, logu, logq) -> tuple:
@@ -825,27 +810,6 @@ def phase_dense_scoring(device) -> int:
 
 
 # --- the uniforms-operand kernels and the paths that run them ---
-
-
-def uniform_bound_ms(rows: int, d: int, tables=None) -> tuple:
-    """Least time for quadrant_descent (tables None) or quilt_descent_lookup
-    on ``rows`` rows: its bytes (4 d of uniforms read and 8 of ids written
-    per row; with a lookup also 8 of block ids read, 8 of node ids written
-    and the tables read once) at the HBM rate, or its int32 operations at
-    the int32 peak, whichever is larger.  Operations counted from the
-    source: 8 per uniform to stage it through shared memory and 13 to
-    descend its level (load, three compares, the bit updates, the loop),
-    10 per row for the index and the stores; a search step 10, twice per
-    row, and 10 for the block ids.  The searches run a fixed number of
-    steps, so the count does not depend on the data."""
-    bytes_ = rows * (4 * d + 8) + d * 16
-    ops_ = rows * (21 * d + 10)
-    if tables is not None:
-        steps = max(tables.shape[1] - 1, 1).bit_length() + 1
-        bytes_ += rows * 16 + tables.numel() * 8
-        ops_ += rows * (2 * 10 * steps + 10)
-    t_ops, t_bytes = ops_ / INT32_OPS_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def test_uniforms(rows: int, cum: torch.Tensor, seed: int) -> torch.Tensor:
@@ -1239,16 +1203,6 @@ def phase_legacy_cross_device(device) -> None:
 
 
 # --- the device-native PRNG batch, ball dropping and the 3-sigma suite ---
-
-
-def native_bound_ms(slots: int, d: int) -> tuple:
-    """Least time for quadrant_descent_native: ceil(d / 4) Philox calls a
-    slot (PHILOX_OPS each), ~21 int32 operations a level for the uniform
-    and the descent, ~10 a slot for the index and the stores; or 8 B of
-    output a slot; whichever is larger."""
-    t_ops = slots * (-(-d // 4) * PHILOX_OPS + 21 * d + 10) / INT32_OPS_PER_S * 1e3
-    t_bytes = (slots * 8 + d * 16) / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def sass_opcodes(name: str, kernel: str) -> dict:
@@ -2449,6 +2403,285 @@ def phase_magfit(device) -> dict:
     return launches
 
 
+# --- the LM (dense family): serve_lm at full width, its timings, gates 1-6 ---
+
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16  # the serve CLI's defaults
+LM_SMOKE = ("olmo_1b", "qwen3_14b", "yi_9b", "deepseek_67b")
+LM_CHECK = (2, 20)  # (batch, prompt) of the smoke checks, as tests/test_torch_models.py
+LM_F32_REL, LM_BF16_ATOL = 1e-4, 0.05  # the CPU tests' bounds (tests/test_torch_models.py)
+LM_PARITY_REL = 0.05  # the reference's relative decode-parity bound (tests/test_models.py:78-80)
+LM_CPU_LEG_S = 60.0  # gate 4's CPU leg: its depth is cut past this estimate
+# deepseek-67b: 95 layers x 1.38 GB of bf16 weights do not fit one 80 GB card;
+# 40 layers (55.4 GB) and the 1.68 GB embedding do, with room for the draw
+LM_DEEPSEEK_LAYERS = 40
+
+
+def events_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn`` by CUDA events around ``reps`` back-to-back calls,
+    warm, with no spin ahead of them: where the host enqueues slower than
+    the device runs, this is the host's pace, what a serve loop sees."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def lm_close(what: str, got: torch.Tensor, want: torch.Tensor, bound: float) -> float:
+    err = float((got.double().cpu() - want.double().cpu()).abs().max())
+    log(f"lm check {what}: max |card - cpu| = {err} (bound {bound})")
+    if tuple(got.shape) != tuple(want.shape) or not err <= bound:
+        raise AssertionError(f"{what}: {err} > {bound} or shapes {tuple(got.shape)} != {tuple(want.shape)}")
+    return err
+
+
+def sync_sites(fn) -> dict:
+    """The host-device synchronisations one call of ``fn`` makes
+    (``torch.cuda.set_sync_debug_mode("warn")``): their count and the
+    source lines that made them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    sites = sorted({f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in hits})
+    return {"count": len(hits), "sites": sites[:12]}
+
+
+def lm_timings(model, params, prompts, what: str) -> dict:
+    """Warm timings of one served model: prefill and a decode step by CUDA
+    events (as a loop sees them, and device-bound behind a spin kernel), the
+    whole generation as serve_lm runs it (host clock), tokens/s, a decode
+    step's device busy share, and each beside its bound."""
+    cfg = model.cfg
+    b, s = prompts.shape
+    prefill = lm_steps.make_prefill_step(model, max_len=s + LM_GEN)
+    decode = lm_steps.make_decode_step(model)
+    with torch.inference_mode():
+        logits, cache = prefill(params, {"tokens": prompts})
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+
+        def step():  # rewrites position s: a decode step at the loop's first length
+            return decode(params, {"cache": cache, "tokens": tok, "cache_len": s})
+
+        def pre():
+            return prefill(params, {"tokens": prompts})
+
+        out = {
+            "prefill_ms": events_ms(pre, 5), "prefill_device_ms": cuda_ms(pre, 5),
+            "decode_ms": events_ms(step, 20), "decode_device_ms": cuda_ms(step, 20),
+        }
+        walls = timed_runs(lambda _: serve.greedy_generate(model, params, prompts, LM_GEN), range(3))
+        _, wall, busy, top = profiled_call(step)
+        syncs = sync_sites(step)
+    gen_ms = statistics.median(walls)
+    dshape = ShapeConfig("serve", s + LM_GEN, b, "decode")
+    pshape = ShapeConfig("serve", s, b, "prefill")
+    out.update({
+        "generate_ms_host_clock": walls, "tokens_per_s": b * LM_GEN / (gen_ms / 1e3),
+        "decode_bound_ms": model_min_bytes(cfg, dshape, chips=1) * 1e9 / HBM_BYTES_PER_S * 1e3,
+        "prefill_bound_ms": max(model_flops(cfg, pshape, chips=1) * 1e9 / BF16_FLOPS_PER_S,
+                                model_min_bytes(cfg, pshape, chips=1) * 1e9 / HBM_BYTES_PER_S) * 1e3,
+        "decode_step_profiled": {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+                                 "top_device_ops": top},
+        "decode_step_syncs": syncs,
+        "params": cfg.param_count(), "layers": cfg.num_layers, "batch": b, "prompt": s, "gen": LM_GEN,
+    })
+    log(f"lm timing {what}: {json.dumps(out)}")
+    return out
+
+
+def lm_parity(model, params, device, what: str) -> None:
+    """Gates 1-2 at full width: finite logits, and decode(prefill(x[:S]),
+    x[S]) against forward(x[:S + 1])[-1] within LM_PARITY_REL x max|logit|."""
+    cfg = model.cfg
+    x = prng.randint(prng.PRNGKey(SEED + 2), (LM_BATCH, LM_PROMPT + 1), 0, cfg.vocab_size, device=device)
+    with torch.inference_mode():
+        full, _ = model.forward(params, x)
+        _, cache = model.prefill(params, x[:, :LM_PROMPT])
+        dl, _ = model.decode(params, cache, x[:, LM_PROMPT:], LM_PROMPT)
+    if not (bool(torch.isfinite(full).all()) and bool(torch.isfinite(dl).all())):
+        raise AssertionError(f"{what}: non-finite logits")
+    top = float(full[:, -1].abs().max())
+    rel = float((full[:, -1] - dl[:, 0]).abs().max()) / top
+    log(f"lm gate 2 {what}: decode parity {rel} of max|logit| {top} (bound {LM_PARITY_REL})")
+    if not rel <= LM_PARITY_REL:
+        raise AssertionError(f"{what}: decode parity {rel} > {LM_PARITY_REL}")
+
+
+def lm_serve(device, arch: str, layers=None) -> dict:
+    """``serve_lm`` at the CLI's defaults for the full ``arch`` on the card
+    (with ``layers``, the same serve loop through the model API at full
+    width with the depth cut to ``layers``: the CLI serves whole configs),
+    then its timings and gates 1-2; the weights freed after."""
+    full = lm_configs.get(arch)
+    what = arch if layers is None else f"{arch} ({layers} layers)"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    if layers is None:
+        run = serve.serve_lm(serve.build_parser().parse_args(["--arch", arch, "--device", str(device)]))
+        model, params, prompts, toks, logits = run
+    else:
+        log(f"lm serve {arch}: depth cut {full.num_layers} -> {layers} layers to fit one card")
+        model = lm_model.build(dataclasses.replace(full, num_layers=layers))
+        with torch.inference_mode():
+            params = model.init(prng.PRNGKey(SEED), device=device)
+            prompts = prng.randint(prng.PRNGKey(SEED + 1), (LM_BATCH, LM_PROMPT), 0, full.vocab_size, device=device)
+        toks, logits = serve.greedy_generate(model, params, prompts, LM_GEN)
+        toks = toks.cpu()
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{what}: non-finite prefill logits")
+    if tuple(toks.shape) != (LM_BATCH, LM_GEN) or not bool(((toks >= 0) & (toks < full.vocab_size)).all()):
+        raise AssertionError(f"{what}: bad tokens {tuple(toks.shape)}")
+    out = lm_timings(model, params, prompts, what)
+    out.update(serve_s=served_s, max_memory_allocated=peak)
+    lm_parity(model, params, device, what)
+    log(f"lm serve {what}: serve_s={served_s} (init and generation) max_memory_allocated={peak} "
+        f"sample_row={toks[0].tolist()}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_prefill_decode(model, params, toks):
+    """Prefill logits, the cache (as float32 on the host, before decode
+    writes it) and the decode logits of one step at position S."""
+    b, s1 = toks.shape
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, toks[:, : s1 - 1])
+        cache_host = {k: v.float().cpu() for k, v in cache.items()}
+        dl, _ = model.decode(params, cache, toks[:, s1 - 1 :], s1 - 1)
+    return logits, cache_host, dl
+
+
+def lm_smoke_cross_device(device) -> None:
+    """Gate 3: the four dense smoke configs, float32 and bf16, card against
+    the CPU port (float32 matmuls without TF32), to the CPU tests' bounds;
+    gate 5: the chunked init on the card bit-equal to the CPU's."""
+    b, s = LM_CHECK
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in LM_SMOKE:
+            for dt in ("float32", "bfloat16"):
+                cfg = dataclasses.replace(lm_configs.get_smoke(arch), dtype=dt)
+                model = lm_model.build(cfg)
+                p_cpu = model.init(prng.PRNGKey(SEED), device="cpu")
+                p_dev = lm_transformer.tree_map(lambda t: t.to(device), p_cpu)
+                toks = prng.randint(prng.PRNGKey(SEED + 3), (b, s + 1), 0, cfg.vocab_size)
+                got = lm_prefill_decode(model, p_dev, toks.to(device))
+                want = lm_prefill_decode(model, p_cpu, toks)
+                f32 = dt == "float32"
+                what = f"gate 3 {arch} {dt}"
+                lm_close(f"{what} prefill logits", got[0], want[0],
+                         LM_F32_REL * float(want[0].abs().max()) if f32 else LM_BF16_ATOL)
+                for name in ("k", "v"):
+                    top = float(want[1][name].abs().max())
+                    lm_close(f"{what} cache {name}", got[1][name], want[1][name], (2.0**-7 if f32 else 0.05) * top)
+                lm_close(f"{what} decode logits", got[2], want[2],
+                         10 * LM_F32_REL * float(want[2].abs().max()) if f32 else LM_BF16_ATOL)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for dt in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(lm_configs.get_smoke("qwen3_14b"), dtype=dt)
+        want = lm_transformer.init_model(prng.PRNGKey(SEED), cfg, device="cpu")
+        chunk = lm_layers.INIT_CHUNK
+        lm_layers.INIT_CHUNK = 1000  # many chunks, with one ending mid-row
+        try:
+            got = lm_transformer.init_model(prng.PRNGKey(SEED), cfg, device=device)
+        finally:
+            lm_layers.INIT_CHUNK = chunk
+        for g, t in zip(lm_transformer.tree_leaves(got), lm_transformer.tree_leaves(want)):
+            bits = torch.int16 if t.element_size() == 2 else torch.int32
+            if not torch.equal(g.cpu().view(bits), t.view(bits)):
+                raise AssertionError(f"gate 5: chunked init on the card differs from the CPU ({dt}, {tuple(t.shape)})")
+        log(f"lm gate 5: qwen3 smoke {dt} init on the card (chunks of 1000) == CPU, bit for bit")
+
+
+def lm_full_width_f32(device) -> None:
+    """Gate 4: one float32 prefill of full-width olmo-1b, card against the
+    CPU port; the weights drawn on the card and copied to the host.  The
+    CPU leg's depth is cut if two layers predict more than LM_CPU_LEG_S."""
+    cfg = dataclasses.replace(lm_configs.get("olmo-1b"), dtype="float32")
+    b, s = LM_CHECK
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            p_dev = lm_model.build(cfg).init(prng.PRNGKey(SEED), device=device)
+            p_cpu = lm_transformer.tree_map(lambda t: t.cpu(), p_dev)
+            toks = prng.randint(prng.PRNGKey(SEED + 4), (b, s), 0, cfg.vocab_size)
+
+            def depth(params, n):
+                return {**params, "blocks": lm_transformer.tree_map(lambda a: a[:n], params["blocks"])}
+
+            t = time.perf_counter()
+            lm_model.build(dataclasses.replace(cfg, num_layers=2)).prefill(depth(p_cpu, 2), toks)
+            est = (time.perf_counter() - t) / 2 * cfg.num_layers
+            layers = cfg.num_layers if est <= LM_CPU_LEG_S else max(2, int(cfg.num_layers * LM_CPU_LEG_S / est))
+            if layers < cfg.num_layers:
+                log(f"lm gate 4: CPU leg estimated {est:.1f} s at {cfg.num_layers} layers: depth cut to {layers}")
+            cut = dataclasses.replace(cfg, num_layers=layers)
+            t = time.perf_counter()
+            want, _ = lm_model.build(cut).prefill(depth(p_cpu, layers), toks)
+            cpu_s = time.perf_counter() - t
+            got, _ = lm_model.build(cut).prefill(depth(p_dev, layers), toks.to(device))
+        lm_close(f"gate 4 olmo-1b float32 full width ({layers} layers, CPU leg {cpu_s:.1f} s) prefill logits",
+                 got, want, LM_F32_REL * float(want.abs().max()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    del p_dev, p_cpu
+    torch.cuda.empty_cache()
+
+
+def lm_dedup_cross_device(device) -> None:
+    """Gate 6: dedup.segmented_unique on the card equals the CPU on the
+    n = 2^12 plan's candidate stream (its exact-round budget per graph, the
+    descent of one threefry draw), targets around the budget."""
+    plan = MAGMSampler(paper_config(CHECK_LOG2_N, device)).plan
+    budget = quilt._exact_budget(plan.p_max, plan.mean_edges)
+    asks = np.full(plan.num_graphs, budget, dtype=np.int64)
+    asks[1] = 0  # an empty graph
+    src, dst = (x.cpu().numpy() for x in kpgm.descend_draw(prng.PRNGKey(SEED + 5), plan.cum, int(asks.sum())))
+    targets = np.random.default_rng(SEED).integers(0, 2 * budget, plan.num_graphs)
+    got = dedup.segmented_unique(src, dst, asks, targets, node_bits=plan.d, device=device)
+    want = dedup.segmented_unique(src, dst, asks, targets, node_bits=plan.d, device="cpu")
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        raise AssertionError("gate 6: segmented_unique on the card differs from the CPU")
+    log(f"lm gate 6: segmented_unique card == CPU on {src.size} candidates of {plan.num_graphs} graphs "
+        f"(taken {int(got[1].sum())})")
+
+
+def phase_lm(device, archs=(), cut=False) -> dict:
+    """The LM serving path (dense family): ``serve_lm`` at the reference
+    CLI's default (full olmo-1b, batch 4, prompt 32, 16 tokens) with its
+    timings and gates 1-2, then gates 3-6; ``archs`` are served at full
+    width after it, and with ``cut`` deepseek-67b at LM_DEEPSEEK_LAYERS."""
+    t = time.perf_counter()
+    out = {"olmo-1b": lm_serve(device, "olmo-1b")}
+    lm_smoke_cross_device(device)
+    lm_full_width_f32(device)
+    lm_dedup_cross_device(device)
+    for arch in archs:
+        out[arch] = lm_serve(device, arch)
+    if cut:
+        out["deepseek-67b"] = lm_serve(device, "deepseek-67b", LM_DEEPSEEK_LAYERS)
+    log(f"lm phase seconds={time.perf_counter() - t}")
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2484,6 +2717,14 @@ def main(argv) -> int:
         log(nvidia_smi())
         log(json.dumps({"magfit": fit}))
         return 0
+    if argv == ["--lm"]:
+        t = time.perf_counter()
+        lm = phase_lm(device, archs=("qwen3-14b", "yi-9b"), cut=True)
+        log(f"lm seconds={time.perf_counter() - t}")
+        log(nvidia_smi())
+        log(json.dumps({"lm": {k: {m: v[m] for m in ("prefill_ms", "decode_ms", "tokens_per_s", "decode_bound_ms")}
+                               for k, v in lm.items()}}))
+        return 0
     if argv == ["--split"]:
         split = phase_split_and_batches(device, MAGMSampler(paper_config(FULL_LOG2_N, device)))
         t = time.perf_counter()
@@ -2515,6 +2756,7 @@ def main(argv) -> int:
     phase_validation_suite(device)
     phase_resilience_and_serving(device, sampler)
     fit_launches = phase_magfit(device)
+    phase_lm(device)
     log(f"balldrop launches: n=2^{FULL_LOG2_N} {bd_launches} n=2^{HOST_LOG2_N} {bd_host_launches}")
 
     kernels = [

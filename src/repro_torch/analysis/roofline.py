@@ -1,0 +1,143 @@
+"""Roofline bounds on one NVIDIA H100 SXM: the least time the card could
+take for some work, the larger of its bytes over the HBM rate and its
+operations over the peak rate for their type.
+
+- The kernels' bounds (``*_bound_ms``), which ``chip_smoke.py`` prints
+  beside each kernel's time: each returns ``(ms, "bytes" | "operations")``.
+- The LM's useful work per step (:func:`model_flops`, GFLOPs) and its
+  unavoidable HBM traffic (:func:`model_min_bytes`, GB), the reference's
+  ``repro.analysis.roofline`` arithmetic on the config and the cache
+  shapes, with no allocation (the cache is laid out on the ``meta``
+  device).
+
+The reference's file holds TPU v5e constants and parses XLA's HLO text
+(``collective_bytes``, ``Roofline``, ``build``): those parts belong to the
+dry-run (ROADMAP queue 1 item 10.3).
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    from repro_torch.core import quilt
+
+# H100 SXM peaks: HBM 3.35 TB/s and dense bf16 tensor-core math 989 TFLOP/s
+# (NVIDIA H100 Tensor Core GPU data sheet, SXM5 column, without sparsity);
+# 32-bit operations at 128 lanes per SM x 132 SMs x 1.98 GHz = 33.5 T ops/s,
+# half the 67 TFLOP/s float32 rate (which counts an FMA as two): integer
+# multiplies run on the FMA pipe beside the 64 INT32 lanes, so no mix of
+# 32-bit ops goes faster
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+INT32_OPS_PER_S = 128 * 132 * 1.98e9
+FP32_FLOPS_PER_S = 67e12  # outside the tensor cores, an FMA counted as two
+# a Philox4x32-10 call: 10 rounds of 4 multiplies and 4 XORs; the round keys
+# depend on the seed alone, so the kernel computes them outside the calls
+PHILOX_OPS = 10 * 8
+
+
+# --- the kernels ---
+
+
+def kernel_bound_ms(plan: "quilt.QuiltPlan", rows: int) -> tuple:
+    """Least time for the kernel's work on this card: its int32 operations
+    at the int32 peak, or its bytes (outputs written once, inputs read once)
+    at the HBM rate, whichever is larger.  Operations per row, counted from
+    the source: a level's counter hash 20, the uniform 3, the quadrant
+    compares 5, the bit updates 5, loop control 2 (35 per level); a search
+    step 10, twice per row; 80 for the row decode, block decode and stores.
+    The searches run a fixed number of steps, so the count does not depend
+    on the data."""
+    steps = max(plan.table_cfg.shape[1] - 1, 1).bit_length() + 1
+    ops_ = rows * (35 * plan.d + 2 * 10 * steps + 80)
+    bytes_ = rows * 16 + plan.table_cfg.numel() * 8 + plan.num_graphs * 4 + plan.d * 16
+    t_ops, t_bytes = ops_ / INT32_OPS_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tile_bound_ms(M: int, N: int, d: int, cell_bytes: int) -> tuple:
+    """Least time for a log-Q tile: its bytes (cell_bytes per output cell,
+    each attribute row read once) at the HBM rate, or its float32 work (d
+    FMAs per cell for the product, d for each of the M row and N column
+    terms, 3 adds per cell) at the float32 peak, whichever is larger."""
+    bytes_ = M * N * cell_bytes + (M + N) * d * 4 + 3 * d * 4 + 4
+    flops = 2 * M * N * d + 2 * (M + N) * d + 3 * M * N
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def descent_bound_ms(slots: int, d: int) -> tuple:
+    """Least time for quadrant_descent_prng: ~35 int32 operations per level
+    (counted as for quilt_prng_descent_lookup) plus ~10 per slot, or 8 B of
+    output per slot, whichever is larger."""
+    t_ops = slots * (35 * d + 10) / INT32_OPS_PER_S * 1e3
+    t_bytes = (slots * 8 + d * 16) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def uniform_bound_ms(rows: int, d: int, tables=None) -> tuple:
+    """Least time for quadrant_descent (tables None) or quilt_descent_lookup
+    on ``rows`` rows: its bytes (4 d of uniforms read and 8 of ids written
+    per row; with a lookup also 8 of block ids read, 8 of node ids written
+    and the tables read once) at the HBM rate, or its int32 operations at
+    the int32 peak, whichever is larger.  Operations counted from the
+    source: 8 per uniform to stage it through shared memory and 13 to
+    descend its level (load, three compares, the bit updates, the loop),
+    10 per row for the index and the stores; a search step 10, twice per
+    row, and 10 for the block ids.  The searches run a fixed number of
+    steps, so the count does not depend on the data."""
+    bytes_ = rows * (4 * d + 8) + d * 16
+    ops_ = rows * (21 * d + 10)
+    if tables is not None:
+        steps = max(tables.shape[1] - 1, 1).bit_length() + 1
+        bytes_ += rows * 16 + tables.numel() * 8
+        ops_ += rows * (2 * 10 * steps + 10)
+    t_ops, t_bytes = ops_ / INT32_OPS_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def native_bound_ms(slots: int, d: int) -> tuple:
+    """Least time for quadrant_descent_native: ceil(d / 4) Philox calls a
+    slot (PHILOX_OPS each), ~21 int32 operations a level for the uniform
+    and the descent, ~10 a slot for the index and the stores; or 8 B of
+    output a slot; whichever is larger."""
+    t_ops = slots * (-(-d // 4) * PHILOX_OPS + 21 * d + 10) / INT32_OPS_PER_S * 1e3
+    t_bytes = (slots * 8 + d * 16) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# --- the LM ---
+
+
+def model_flops(cfg, shape, *, chips: int) -> float:
+    """Useful GFLOPs per chip: 6·N·D training, 2·N·D per forward token.
+
+    N = active params (MoE counts routed experts only); D = tokens processed
+    by the step (decode: batch tokens; prefill: B*S)."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        factor = 6.0
+    elif shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        factor = 2.0
+    else:  # decode: one token per sequence
+        tokens = shape.global_batch
+        factor = 2.0
+    return factor * n_active * tokens / chips / 1e9
+
+
+def model_min_bytes(cfg, shape, *, chips: int) -> float:
+    """Unavoidable per-chip HBM GB per step: weights (bf16, read once) plus,
+    for decode, the full KV cache stream (``kvcache.init_cache``'s layout,
+    dense family)."""
+    from repro_torch.models import kvcache
+
+    pbytes = cfg.param_count() * 2.0  # bf16 weights
+    cbytes = 0.0
+    if shape.kind == "decode":
+        cache = kvcache.init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
+        for leaf in cache.values():
+            cbytes += float(leaf.numel()) * leaf.element_size()
+    return (pbytes + cbytes) / chips / 1e9

@@ -1,0 +1,31 @@
+"""qwen3-14b [dense]: GQA + per-head-dim q/k RMSNorm (qk_norm).
+
+40L d=5120 40H kv=8 d_ff=17408 v=151936.  [hf:Qwen/Qwen3-8B family; hf]
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-14b",
+    family="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    d_ff=17408,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+)
+
+SMOKE = ModelConfig(
+    name="qwen3-smoke",
+    family="dense",
+    num_layers=3,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=2,
+    d_ff=128,
+    vocab_size=256,
+    qk_norm=True,
+)

@@ -21,7 +21,9 @@ Also the host helpers of the ranked rounds: the geometric batch-size grid
 (:func:`bucket_size`), how one batch is split across the graphs that need
 edges (:func:`plan_asks`, :func:`uniform_ask`), the first-occurrence dedup
 of an edge array (:func:`dedup_edges`), and the fixed-size chunking of a
-stream of edges (:func:`rechunk_edges`, :func:`iter_edge_chunks`).
+stream of edges (:func:`rechunk_edges`, :func:`iter_edge_chunks`); and
+the one-shot host entry point :func:`segmented_unique` with its numpy
+oracle :func:`host_unique_reference`.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.device import resolve_device
 
 
 def bucket_size(x: int, tile: int = 1) -> int:
@@ -251,3 +255,53 @@ def segmented_unique_mask(
         counts = torch.zeros_like(offs_ex)
     counts = torch.where(cum_asks > offs_ex, counts, torch.zeros_like(counts))
     return take, counts.to(torch.int32)
+
+
+def segmented_unique(
+    src: np.ndarray,
+    dst: np.ndarray,
+    asks: np.ndarray,
+    targets: np.ndarray,
+    *,
+    node_bits: int,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One-shot convenience wrapper: dedup a host candidate stream per graph
+    through :func:`segmented_unique_mask` on ``device`` (default ``"cuda"``;
+    raises without a card).
+
+    ``asks.sum()`` must equal ``len(src)``.  Returns host ``(take, counts)``
+    (bool, int32).
+    """
+    dev = resolve_device(device)
+    src_t = torch.from_numpy(np.asarray(src, dtype=np.int32)).to(dev)
+    dst_t = torch.from_numpy(np.asarray(dst, dtype=np.int32)).to(dev)
+    cum_asks = torch.from_numpy(np.cumsum(np.asarray(asks, dtype=np.int64))).to(dev)
+    graph_id = torch.searchsorted(cum_asks, torch.arange(src_t.shape[0], device=dev), right=True)
+    take, counts = segmented_unique_mask(
+        graph_id, src_t, dst_t, cum_asks, torch.from_numpy(np.asarray(targets, dtype=np.int64)).to(dev),
+        node_bits=node_bits,
+    )
+    return take.cpu().numpy(), counts.cpu().numpy()
+
+
+def host_unique_reference(
+    src: np.ndarray,
+    dst: np.ndarray,
+    asks: np.ndarray,
+    targets: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The host semantics (np.unique in arrival order, capped), as a
+    reference oracle for the device path."""
+    take = np.zeros(src.shape[0], dtype=bool)
+    counts = np.zeros(len(asks), dtype=np.int64)
+    off = 0
+    for g, ask in enumerate(np.asarray(asks, dtype=np.int64)):
+        chunk = slice(off, off + int(ask))
+        flat = src[chunk].astype(np.int64) << 32 | dst[chunk].astype(np.int64)
+        _, first_idx = np.unique(flat, return_index=True)
+        keep_local = np.sort(first_idx)[: int(targets[g])]
+        take[off + keep_local] = True
+        counts[g] = keep_local.size
+        off += int(ask)
+    return take, counts

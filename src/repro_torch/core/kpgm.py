@@ -104,6 +104,12 @@ def edge_moments_eager(thetas: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     return _prod_levels(_level_sums(f)), _prod_levels((sq[:, 0] + sq[:, 1]) + (sq[:, 2] + sq[:, 3]))
 
 
+def expected_edges(thetas) -> float:
+    """E|E| = prod_k sum(theta^(k)), as the reference's eager
+    ``expected_edges`` evaluates it."""
+    return float(edge_moments_eager(thetas)[0])
+
+
 def _edge_std(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return f32math.sqrt(torch.clamp_min(m - v, 0.0))
 
@@ -151,6 +157,16 @@ def _level_cumprobs(thetas: torch.Tensor) -> torch.Tensor:
 def _descend(u: torch.Tensor, cum: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, d) uniforms + (d, 4) cumulative quadrant probs -> int32 id pairs."""
     return _descend_body(u, cum)
+
+
+def edge_prob_matrix(thetas) -> torch.Tensor:
+    """Exact dense P = kron(theta_1, ..., theta_d), float32.  Only for small
+    d (tests)."""
+    thetas = torch.as_tensor(thetas, dtype=torch.float32)
+    p = thetas[0]
+    for k in range(1, thetas.shape[0]):
+        p = torch.kron(p, thetas[k])
+    return p
 
 
 def log_level_sum(thetas: torch.Tensor) -> torch.Tensor:

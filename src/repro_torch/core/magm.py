@@ -8,7 +8,7 @@ configuration lambda_i is the integer whose binary expansion is f(i)
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +87,12 @@ def attributes_from_configs(lam: torch.Tensor, d: int) -> torch.Tensor:
     """Inverse of :func:`configs_from_attributes`: (n, d) int8 bits."""
     shift = torch.arange(d - 1, -1, -1, device=torch.as_tensor(lam).device)
     return ((torch.as_tensor(lam).to(torch.int64)[:, None] >> shift) & 1).to(torch.int8)
+
+
+def config_counts(lam) -> Tuple[np.ndarray, np.ndarray]:
+    """Unique configurations and their multiplicities (host-side)."""
+    lam = lam.cpu().numpy() if isinstance(lam, torch.Tensor) else np.asarray(lam)
+    return np.unique(lam, return_counts=True)
 
 
 class BilinearLogTheta(NamedTuple):

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import List, NamedTuple
 
 import numpy as np
+import torch
 
 
 def occurrence_ranks_np(lam: np.ndarray) -> np.ndarray:
@@ -29,6 +30,25 @@ def occurrence_ranks_np(lam: np.ndarray) -> np.ndarray:
     run_start = np.maximum.accumulate(np.where(new_run, np.arange(n), 0))
     ranks = np.empty(n, dtype=np.int64)
     ranks[order] = np.arange(n) - run_start + 1
+    return ranks
+
+
+def occurrence_ranks(lam: torch.Tensor) -> torch.Tensor:
+    """Tensor version of :func:`occurrence_ranks_np` on lam's device (int64
+    ranks; the run starts are a running max instead of numpy's
+    accumulate)."""
+    lam = torch.as_tensor(lam)
+    n = lam.shape[0]
+    order = torch.sort(lam, stable=True).indices
+    sorted_lam = lam[order]
+    new_run = torch.ones(n, dtype=torch.bool, device=lam.device)
+    new_run[1:] = sorted_lam[1:] != sorted_lam[:-1]
+    idx = torch.arange(n, device=lam.device)
+    if n == 0:
+        return idx
+    run_start = torch.cummax(torch.where(new_run, idx, 0), dim=0).values
+    ranks = torch.empty(n, dtype=torch.int64, device=lam.device)
+    ranks[order] = idx - run_start + 1
     return ranks
 
 
@@ -101,3 +121,24 @@ def lookup_nodes(sorted_configs: np.ndarray, sorted_nodes: np.ndarray, configs: 
         return np.full(configs.shape, -1, dtype=np.int64)
     pos = np.minimum(np.searchsorted(sorted_configs, configs), sorted_configs.size - 1)
     return np.where(sorted_configs[pos] == configs, sorted_nodes[pos], -1)
+
+
+def is_valid_partition(lam: np.ndarray, sets: List[np.ndarray]) -> bool:
+    """Checks the injectivity invariant and coverage (used by property tests)."""
+    lam = np.asarray(lam)
+    seen = np.zeros(lam.shape[0], dtype=bool)
+    for members in sets:
+        if np.unique(lam[members]).size != members.size:
+            return False  # two nodes in one set share a configuration
+        if seen[members].any():
+            return False  # not a partition
+        seen[members] = True
+    return bool(seen.all())
+
+
+def min_partition_size(lam: np.ndarray) -> int:
+    """Pigeon-hole lower bound = max multiplicity of any configuration."""
+    if np.asarray(lam).size == 0:
+        return 0
+    _, counts = np.unique(np.asarray(lam), return_counts=True)
+    return int(counts.max())

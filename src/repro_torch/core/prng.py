@@ -176,12 +176,14 @@ _NORMAL_LO = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
 _SQRT2 = float(torch.tensor(math.sqrt(2.0), dtype=torch.float32))
 
 
-def normal(key: Key, shape: Shape = (), *, device=None) -> torch.Tensor:
+def normal(key: Key, shape: Shape = (), *, offset: int = 0, device=None) -> torch.Tensor:
     """float32 standard normals as ``jax.random.normal(key, shape)``:
     ``sqrt(2) * erf_inv(u)`` with ``u`` uniform in ``(-1, 1)``, the inverse
     error function evaluated as the reference's compiled code evaluates it
-    (``f32math.erf_inv``), so the bits are equal on every device."""
-    u = uniform(key, shape, minval=_NORMAL_LO, maxval=1.0, device=device)
+    (``f32math.erf_inv``), so the bits are equal on every device.
+    ``offset`` draws the elements from that flat index on, as in
+    :func:`uniform`."""
+    u = uniform(key, shape, minval=_NORMAL_LO, maxval=1.0, offset=offset, device=device)
     return _SQRT2 * f32math.erf_inv(u)
 
 

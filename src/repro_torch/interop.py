@@ -1,7 +1,8 @@
 """State carried over from the JAX package.
 
 :func:`from_reference` serves MAGM sessions and MAGFIT,
-:func:`kpgm_from_reference` KPGM sessions.
+:func:`kpgm_from_reference` KPGM sessions, :func:`lm_params_from_reference`
+the LM's weights.
 
 A sampler has no weights; what the two packages must share to give the
 same graph is the initiator thetas, the attribute matrix and the key.
@@ -15,7 +16,7 @@ that either package can bootstrap, canonicalize or resample the other's.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,3 +89,23 @@ def fit_to_reference(fit: FitResult) -> dict:
         iterations=int(fit.iterations),
         converged=bool(fit.converged),
     )
+
+
+def _leaf_tensor(arr) -> torch.Tensor:
+    """A numpy array as a CPU tensor with the same bits.  A bfloat16 array
+    (numpy's view of a JAX bf16 array: dtype ``bfloat16`` from ml_dtypes,
+    which the port does not import) goes through its int16 view."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def lm_params_from_reference(params: Any, device=None) -> Any:
+    """The port's LM param tree from the reference's: the same nested dicts,
+    each leaf (a numpy array, or anything ``numpy.asarray`` reads) as a
+    tensor with the same dtype and bits on ``device`` (default: the CPU)."""
+    if isinstance(params, dict):
+        return {k: lm_params_from_reference(v, device) for k, v in params.items()}
+    t = _leaf_tensor(params)
+    return t if device is None else t.to(device)

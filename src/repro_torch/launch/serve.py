@@ -1,4 +1,15 @@
-"""Graph serving: MAGM graph sampling as a service.
+"""Serving: the LM decode loop, or MAGM graph sampling as a service.
+
+LM mode (the default: prefill a prompt batch, then greedy-decode tokens;
+the dense family, full ``olmo-1b`` unless ``--arch``/``--smoke`` say
+otherwise):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch olmo-1b] \
+        [--smoke] [--batch 4] [--prompt-len 32] [--gen 16] [--device cuda]
+
+The weights are the reference's ``init_model`` bits for ``--seed`` and the
+prompts its ``randint`` draw for ``--seed + 1``, so the two packages serve
+the same tokens.
 
 Graph mode (--magm): build ONE sampler session and serve sample requests
 from it through :class:`GraphServer` — a bounded-in-flight-queue service
@@ -11,11 +22,10 @@ instead of unbounded queue delay:
         --requests 4 --chunk-edges 65536 [--device cuda] \
         [--max-queue 8] [--deadline-s 30]
 
-The session runs on ``--device`` (default ``cuda``; it raises without a
-card).  A card request that fails becomes a typed ``error`` response; it is
-never re-run on the CPU.  ``--mesh`` raises ``NotImplementedError``
-(ROADMAP queue 1 item 7b), and the reference's LM decode mode (run without
-``--magm``) is ROADMAP queue 1 item 10.
+Both modes run on ``--device`` (default ``cuda``; they raise without a
+card, and never fall back to the CPU).  A card request that fails becomes a
+typed ``error`` response; it is never re-run on the CPU.  ``--mesh`` raises
+``NotImplementedError`` (ROADMAP queue 1 item 7b).
 
 Response contract (``ServeResponse``), the reference's
 (``repro.launch.serve``): every request — well-formed or garbage — gets
@@ -43,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.device import resolve_device
 from repro_torch.dist import chaos
 
 
@@ -368,14 +379,76 @@ def serve_graphs(args) -> None:
     print(f"[serve] OK ({total} edges over {args.requests} requests, {empty} empty; stats={stats})")
 
 
-def main(argv=None) -> None:
+class LMRun(NamedTuple):
+    """What :func:`serve_lm` served: the model, its params and prompts, the
+    generated tokens and the prefill's logits."""
+
+    model: Any
+    params: Dict[str, Any]
+    prompts: torch.Tensor  # (B, S) int32, on the device
+    tokens: torch.Tensor  # (B, gen) int32, on the CPU
+    logits: torch.Tensor  # (B, S, V) float32 prefill logits, on the device
+
+
+def greedy_generate(model, params, prompts: torch.Tensor, gen: int):
+    """The serve loop: prefill ``prompts`` (B, S) into a cache of S + gen
+    positions, then ``gen - 1`` greedy decode steps.  Returns the (B, gen)
+    int32 tokens (on the device; the host is not waited for) and the
+    prefill's logits."""
+    from repro_torch.train import steps as steps_lib
+
+    s = prompts.shape[1]
+    prefill = steps_lib.make_prefill_step(model, max_len=s + gen)
+    decode = steps_lib.make_decode_step(model)
+    with torch.inference_mode():
+        logits, cache = prefill(params, {"tokens": prompts})
+        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        out = [next_tok]
+        for i in range(gen - 1):
+            batch = {"cache": cache, "tokens": next_tok[:, None], "cache_len": s + i}
+            next_tok, _, cache = decode(params, batch)
+            out.append(next_tok)
+        return torch.stack(out, dim=1), logits
+
+
+def serve_lm(args) -> LMRun:
+    """Prefill ``args.batch`` random prompts of ``args.prompt_len`` tokens,
+    then greedy-decode ``args.gen`` tokens each, on ``args.device``."""
+    from repro_torch import configs
+    from repro_torch.models.model import build as build_model
+
+    device = resolve_device(args.device)
+    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    model = build_model(cfg)
+    with torch.inference_mode():
+        params = model.init(prng.PRNGKey(args.seed), device=device)
+        prompts = prng.randint(prng.PRNGKey(args.seed + 1), (args.batch, args.prompt_len), 0, cfg.vocab_size,
+                               device=device)
+    t0 = time.perf_counter()
+    toks, logits = greedy_generate(model, params, prompts, args.gen)
+    toks = toks.cpu()  # waits for the device
+    dt = time.perf_counter() - t0
+    print(f"[serve] {cfg.name}: generated {tuple(toks.shape)} in {dt:.2f}s on {device}")
+    print("[serve] sample row:", toks[0].tolist())
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    print("[serve] OK")
+    return LMRun(model, params, prompts, toks, logits)
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--magm", action="store_true", help="serve MAGM graphs")
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--magm", action="store_true", help="serve MAGM graphs")
     ap.add_argument("--graph-d", type=int, default=12)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--chunk-edges", type=int, default=1 << 14)
-    ap.add_argument("--device", default="cuda", help="device of the session (default: cuda)")
+    ap.add_argument("--device", default="cuda", help="device of the model or session (default: cuda)")
     ap.add_argument("--mesh", action="store_true", help="shard over devices (not ported)")
     ap.add_argument(
         "--max-queue",
@@ -384,13 +457,17 @@ def main(argv=None) -> None:
         help="in-flight request bound; submits beyond it are shed with a typed 'overloaded' response",
     )
     ap.add_argument("--deadline-s", type=float, default=None, help="per-request deadline in seconds (default: none)")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
     if args.mesh:
         raise NotImplementedError("--mesh (ROADMAP queue 1 item 7b: meshes) is not ported yet")
-    if not args.magm:
-        raise NotImplementedError("the LM decode mode (ROADMAP queue 1 item 10) is not ported yet; pass --magm")
-    serve_graphs(args)
+    if args.magm:
+        serve_graphs(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -225,7 +225,10 @@ def test_cli_serves_on_the_cpu():
     assert "[serve] OK" in out.stdout and "'errors': 0" in out.stdout and "'completed': 3" in out.stdout
 
 
-@pytest.mark.parametrize("argv, item", [(["--magm", "--mesh"], "7b"), ([], "item 10")])
+# the LM mode serves the dense family; the other families name their item
+@pytest.mark.parametrize(
+    "argv, item", [(["--magm", "--mesh"], "7b"), (["--arch", "mixtral-8x22b", "--smoke", "--device", "cpu"], "item 10")]
+)
 def test_cli_unported_modes_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(argv)
