@@ -104,7 +104,14 @@ launch counts set to 0 just before and read just after:
   (no TF32) and bf16 to the CPU tests' bounds, one float32 prefill of
   full-width olmo-1b card == CPU port, the chunked weight draw on the card
   bit-equal to the CPU's, and dedup.segmented_unique card == CPU on the
-  n = 2^12 plan's candidate stream.
+  n = 2^12 plan's candidate stream;
+- LM training, dense family (phase_train; PyTorch ops, kernel 1 in the
+  corpus): on phase_lm's full olmo-1b weights, a MAGMCorpus at the train
+  CLI's default n = 2^12 (kernel 1's launches read around its build),
+  three train steps at batch 8 x 128 (finite loss and grad norm, step ms
+  by CUDA events); gates: the four dense smoke configs' gradients and one
+  train step card == CPU port in float32 (no TF32), and flash attention's
+  backward card == CPU at one multi-chunk GQA shape.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  Output, last three lines: the card's name and power limit as
@@ -143,6 +150,21 @@ builds the kernels and runs the LM phase, then serve_lm at full width for
 qwen3-14b (40 layers, ~28 GB of bf16 weights) and yi-9b (48 layers), and
 the serve loop for deepseek-67b at full width with its depth cut to
 LM_DEEPSEEK_LAYERS of 95 (one card holds 80 GB).
+
+    python3 chip_smoke.py --train
+
+builds the kernels and trains full olmo-1b (16 layers, d = 2048, 1.18 B
+params, bf16 weights, AdamW with float32 state): on a MAGMCorpus at
+n = 2^15 (build seconds, kernel 1's launches), 20 steps at the train CLI's
+batch 8 x 128 (the loss falls) and 6 at train_4k's sequence of 4096 with
+its global batch cut from 256 to 4, each with step ms by CUDA events,
+tokens/s, MFU and the share of analysis.roofline.train_step_bound_ms, a
+profiled step's idle share and top device ops, its host syncs and peak
+memory; then the supervisor gate (olmo-1b at full width cut to 2 layers:
+14 steps with an InjectedFault before step 9 and checkpoints every 5 end
+bit-equal to an uninterrupted run) and the train CLI on the card (the
+smoke config, and full olmo-1b when the disk holds its ~16.5 GB
+checkpoints), its checkpoints in a temporary directory removed after.
 """
 
 from __future__ import annotations
@@ -152,6 +174,7 @@ import inspect
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -169,7 +192,7 @@ import torch  # noqa: E402
 from repro_torch.analysis import validate  # noqa: E402
 from repro_torch.analysis.roofline import (  # noqa: E402
     BF16_FLOPS_PER_S, HBM_BYTES_PER_S, descent_bound_ms, kernel_bound_ms, model_flops, model_min_bytes,
-    native_bound_ms, tile_bound_ms, uniform_bound_ms,
+    native_bound_ms, tile_bound_ms, train_step_bound_ms, uniform_bound_ms,
 )
 from repro_torch.api import KPGMSampler, MAGMSampler, SamplerConfig  # noqa: E402
 from repro_torch.api import stream as stream_mod  # noqa: E402
@@ -177,8 +200,10 @@ from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.magm_paper import DEFAULT_MU, THETA_1, THETA_2  # noqa: E402
 from repro_torch.core import balldrop, dedup, f32math, kpgm, magm, naive, prng, quilt  # noqa: E402
+from repro_torch.data.pipeline import MAGMCorpus  # noqa: E402
 from repro_torch.dist import chaos  # noqa: E402
 from repro_torch.dist import checkpoint as ckpt_mod  # noqa: E402
+from repro_torch.dist import fault  # noqa: E402
 from repro_torch.api import fit_config as api_fit_config  # noqa: E402
 from repro_torch.fit import magfit  # noqa: E402
 from repro_torch.fit import recover as fit_recover  # noqa: E402
@@ -187,9 +212,11 @@ from repro_torch.kernels import bernoulli_tile as bt  # noqa: E402
 from repro_torch.kernels import magm_logprob as ml  # noqa: E402
 from repro_torch.kernels import quadrant_descent as qd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import flash as lm_flash  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
+from repro_torch.train import optimizer as opt_lib  # noqa: E402
 from repro_torch.train import steps as lm_steps  # noqa: E402
 
 FULL_LOG2_N = 15  # the largest paper configuration the exact path runs
@@ -2451,7 +2478,9 @@ def sync_sites(fn) -> dict:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    # the first call in a process also warns that the mode is a prototype
+    # ("... synchronizing operations"): a notice, not a sync
+    hits = [w for w in caught if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
     sites = sorted({f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in hits})
     return {"count": len(hits), "sites": sites[:12]}
 
@@ -2517,11 +2546,12 @@ def lm_parity(model, params, device, what: str) -> None:
         raise AssertionError(f"{what}: decode parity {rel} > {LM_PARITY_REL}")
 
 
-def lm_serve(device, arch: str, layers=None) -> dict:
+def lm_serve(device, arch: str, layers=None, keep=False):
     """``serve_lm`` at the CLI's defaults for the full ``arch`` on the card
     (with ``layers``, the same serve loop through the model API at full
     width with the depth cut to ``layers``: the CLI serves whole configs),
-    then its timings and gates 1-2; the weights freed after."""
+    then its timings and gates 1-2; the weights freed after, or with
+    ``keep`` returned beside the timings as ``(out, (model, params))``."""
     full = lm_configs.get(arch)
     what = arch if layers is None else f"{arch} ({layers} layers)"
     torch.cuda.synchronize()
@@ -2550,7 +2580,10 @@ def lm_serve(device, arch: str, layers=None) -> dict:
     lm_parity(model, params, device, what)
     log(f"lm serve {what}: serve_s={served_s} (init and generation) max_memory_allocated={peak} "
         f"sample_row={toks[0].tolist()}")
-    del params, logits
+    del logits
+    if keep:
+        return out, (model, params)
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -2664,13 +2697,16 @@ def lm_dedup_cross_device(device) -> None:
         f"(taken {int(got[1].sum())})")
 
 
-def phase_lm(device, archs=(), cut=False) -> dict:
+def phase_lm(device, archs=(), cut=False, keep=False):
     """The LM serving path (dense family): ``serve_lm`` at the reference
     CLI's default (full olmo-1b, batch 4, prompt 32, 16 tokens) with its
     timings and gates 1-2, then gates 3-6; ``archs`` are served at full
-    width after it, and with ``cut`` deepseek-67b at LM_DEEPSEEK_LAYERS."""
+    width after it, and with ``cut`` deepseek-67b at LM_DEEPSEEK_LAYERS.
+    With ``keep`` olmo-1b's model and weights come back beside the
+    timings, ``(out, (model, params))``."""
     t = time.perf_counter()
-    out = {"olmo-1b": lm_serve(device, "olmo-1b")}
+    olmo = lm_serve(device, "olmo-1b", keep=keep)
+    out = {"olmo-1b": olmo[0] if keep else olmo}
     lm_smoke_cross_device(device)
     lm_full_width_f32(device)
     lm_dedup_cross_device(device)
@@ -2679,6 +2715,295 @@ def phase_lm(device, archs=(), cut=False) -> dict:
     if cut:
         out["deepseek-67b"] = lm_serve(device, "deepseek-67b", LM_DEEPSEEK_LAYERS)
     log(f"lm phase seconds={time.perf_counter() - t}")
+    return (out, olmo[1]) if keep else out
+
+
+# --- LM training (dense family): the corpus, the train step, flash's backward ---
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 128  # the reference train CLI's defaults
+TRAIN_GRAPH_LOG2_N = 12  # the CLI's default --graph-nodes: the full run's corpus
+TRAIN_FULL_GRAPH_LOG2_N = 15  # --train's corpus, the largest exact paper configuration
+TRAIN_SMOKE_STEPS = 3  # the full run's steps of full olmo-1b
+TRAIN_STEPS = 20  # --train's run at batch 8 x 128
+TRAIN_4K = (4, 4096)  # train_4k's sequence, its global batch of 256 cut to 4
+TRAIN_4K_STEPS = 6
+TRAIN_LR = 3e-4  # the CLI's default, warmed up over 10 steps as the CLI does
+TRAIN_REL = 1e-4  # card vs CPU in float32: loss (relative), gradients and mu (x max)
+TRAIN_MASTER_ATOL = 1e-6
+FLASH_BWD = (2, 1024, 16, 4, 64, 256, 512)  # (b, s, heads, kv heads, hd, q chunk, kv chunk)
+FLASH_BWD_REL = 1e-5  # float32, x max|grad| (tests/test_torch_flash.py)
+SUP_LAYERS, SUP_STEPS, SUP_FAULT, SUP_EVERY = 2, 14, 9, 5  # the supervisor gate (tests/test_system.py)
+# the train CLI: at 12 steps of lr warm-up the smoke model's loss does not fall
+# on the 512-node graph in either package, at 16 it does (tests/test_torch_train.py)
+TRAIN_CLI_STEPS = 16
+
+
+def trainable(params):
+    """Copies of ``serve_lm``'s weights that autograd can use (it draws
+    them under ``torch.inference_mode``)."""
+    return lm_transformer.tree_map(torch.clone, params)
+
+
+def train_corpus(device, log2_n: int, vocab: int, batch: int, seq: int):
+    """A MAGMCorpus on the card with its build time and kernel 1's
+    launches (its split's light quilt)."""
+    t = time.perf_counter()
+    corpus, k1 = k1_launches(lambda: MAGMCorpus(num_nodes=1 << log2_n, vocab_size=vocab, seq_len=seq,
+                                                batch_size=batch, seed=SEED, device=device))
+    info = {"build_s": time.perf_counter() - t, "n": corpus.num_nodes, "num_edges": corpus.num_edges,
+            "B": corpus.quilt_stats.B, "light_nodes": corpus.quilt_stats.light_nodes,
+            "quilt_prng_descent_lookup": k1}
+    log(f"train corpus: {json.dumps(info)}")
+    if k1 < 1 or corpus.num_edges <= 0:
+        raise AssertionError(f"train corpus at n = 2^{log2_n}: {k1} kernel 1 launches, {corpus.num_edges} edges")
+    b = corpus.batch(0)
+    if tuple(b["tokens"].shape) != (batch, seq) or b["tokens"].device.type != torch.device(device).type:
+        raise AssertionError(f"train corpus batch {tuple(b['tokens'].shape)} on {b['tokens'].device}")
+    return corpus, info
+
+
+def train_run(model, params, corpus, steps: int, what: str, *, profile: bool = True):
+    """``steps`` train steps of ``model`` from ``params`` on the corpus's
+    batches (made before the loop), AdamW at the CLI's schedule: per-step
+    ms by CUDA events (as the loop sees them: no host sync in a step), the
+    warm median, tokens/s, MFU and the share of the bound
+    (``train_step_bound_ms``), a profiled step's idle share and top device
+    ops, its host syncs, peak memory.  Returns (stats, params)."""
+    cfg = model.cfg
+    opt_cfg = opt_lib.OptConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=steps)
+    step_fn = lm_steps.make_train_step(model, opt_cfg)
+    batches = [corpus.batch(s) for s in range(steps)]
+    b, s_len = batches[0]["tokens"].shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt_state = opt_lib.init(params)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    metrics = []
+    t = time.perf_counter()
+    for i in range(steps):
+        events[i][0].record()
+        params, opt_state, m = step_fn(params, opt_state, batches[i])
+        events[i][1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    step_ms = [a.elapsed_time(z) for a, z in events]
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"{what}: non-finite loss or grad norm: {losses} {gnorms}")
+    warm = statistics.median(step_ms[2:]) if steps > 3 else step_ms[-1]
+    bound, bound_by = train_step_bound_ms(cfg, b, s_len)
+    flops = model_flops(cfg, ShapeConfig("train", s_len, b, "train"), chips=1) * 1e9
+    out = {
+        "params": cfg.param_count(), "layers": cfg.num_layers, "batch": b, "seq": s_len, "steps": steps,
+        "losses": losses, "grad_norms": gnorms, "step_ms": step_ms, "warm_step_ms": warm, "wall_s": wall_s,
+        "tokens_per_s": b * s_len / (warm / 1e3), "mfu": flops / (warm / 1e3) / BF16_FLOPS_PER_S,
+        "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / warm,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    if profile:
+        (params, opt_state, _), wall, busy, top = profiled_call(lambda: step_fn(params, opt_state, batches[-1]))
+        out["step_profiled"] = {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+                                "idle_share_of_warm_step": 1 - busy / warm, "top_device_ops": top}
+        out["step_syncs"] = sync_sites(lambda: step_fn(params, opt_state, batches[-1]))
+        # the step's two halves, as the loop sees them and device-bound
+        grad_fn = lm_steps.make_grad_fn(model)
+        grads = grad_fn(params, batches[-1])[2]
+
+        def grad():
+            return grad_fn(params, batches[-1])
+
+        def update():
+            return opt_lib.update(opt_cfg, grads, opt_state, params)
+
+        out["breakdown_ms"] = {"grad": events_ms(grad, 3), "grad_device": cuda_ms(grad, 3),
+                               "update": events_ms(update, 3), "update_device": cuda_ms(update, 3)}
+        del grads
+    log(f"train {what}: {json.dumps(out)}")
+    del opt_state
+    torch.cuda.empty_cache()
+    return out, params
+
+
+def train_smoke_cross_device(device) -> None:
+    """The four dense smoke configs in float32 (no TF32): the gradients and
+    one train step on the card against the CPU port, the loss to TRAIN_REL,
+    each gradient leaf and mu within TRAIN_REL x its max, the master within
+    TRAIN_MASTER_ATOL where the CPU's mu decides the entry's sign (else
+    within 2 lr: AdamW's first step moves each entry by ~lr in its
+    gradient's sign)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt_cfg = opt_lib.OptConfig(lr=3e-3, warmup_steps=2, total_steps=40)
+    try:
+        for arch in LM_SMOKE:
+            cfg = dataclasses.replace(lm_configs.get_smoke(arch), dtype="float32")
+            model = lm_model.build(cfg)
+            p_cpu = model.init(prng.PRNGKey(SEED), device="cpu")
+            p_dev = lm_transformer.tree_map(lambda t: t.to(device), p_cpu)
+            toks = prng.randint(prng.PRNGKey(SEED + 6), (2, 32), 0, cfg.vocab_size)
+            batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+            dbatch = {k: v.to(device) for k, v in batch.items()}
+            grad_fn, step_fn = lm_steps.make_grad_fn(model), lm_steps.make_train_step(model, opt_cfg)
+            (l_c, _, g_c), (l_d, _, g_d) = grad_fn(p_cpu, batch), grad_fn(p_dev, dbatch)
+            what = f"train gate {arch} float32"
+            lm_close(f"{what} loss", l_d, l_c, TRAIN_REL * abs(float(l_c)))
+            worst = 0.0
+            for a, c in zip(lm_transformer.tree_leaves(g_d), lm_transformer.tree_leaves(g_c)):
+                worst = max(worst, float((a.cpu() - c).abs().max()) / float(c.abs().max()))
+            if not worst <= TRAIN_REL:
+                raise AssertionError(f"{what}: gradient leaf {worst} x max|g| > {TRAIN_REL}")
+            _, s_c, m_c = step_fn(p_cpu, opt_lib.init(p_cpu), batch)
+            _, s_d, m_d = step_fn(p_dev, opt_lib.init(p_dev), dbatch)
+            lm_close(f"{what} grad_norm", m_d["grad_norm"], m_c["grad_norm"], TRAIN_REL * float(m_c["grad_norm"]))
+            flipped = 0
+            for mu_d, mu_c, ma_d, ma_c in zip(*(lm_transformer.tree_leaves(t) for t in
+                                                (s_d.mu, s_c.mu, s_d.master, s_c.master))):
+                top = float(mu_c.abs().max())
+                if not float((mu_d.cpu() - mu_c).abs().max()) <= TRAIN_REL * top:
+                    raise AssertionError(f"{what}: mu beyond {TRAIN_REL} x max")
+                err = (ma_d.cpu() - ma_c).abs()
+                sure = mu_c.abs() > TRAIN_REL * top
+                if not (bool((err[sure] <= TRAIN_MASTER_ATOL).all())
+                        and bool((err <= 2 * opt_cfg.lr + TRAIN_MASTER_ATOL).all())):
+                    raise AssertionError(f"{what}: master beyond its bounds ({float(err.max())})")
+                flipped += int((err > TRAIN_MASTER_ATOL).sum())
+            log(f"{what}: worst gradient leaf {worst} x max|g| (bound {TRAIN_REL}); one step: "
+                f"{flipped} master entries past {TRAIN_MASTER_ATOL}, all where |mu| is float noise")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def flash_bwd_cross_device(device) -> None:
+    """flash attention's backward at one multi-chunk GQA shape (FLASH_BWD,
+    causal), the card against the CPU port: float32 (no TF32) within
+    FLASH_BWD_REL x max|grad|, bf16 within two bf16 ulps at max|grad|."""
+    b, s, h, kv, hd, qc, kc = FLASH_BWD
+    rng = np.random.default_rng(SEED + 7)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                     for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dt, rel in ((torch.float32, FLASH_BWD_REL), (torch.bfloat16, 2.0**-7)):
+            grads = {}
+            for dev in ("cpu", device):
+                leaves = [x.to(dev, dt).detach().requires_grad_(True) for x in (q, k, v)]
+                out = lm_flash.flash_attention(*leaves, True, 0, 0, qc, kc)
+                out.backward(dout.to(dev, dt))
+                grads[str(dev)] = [x.grad.float().cpu() for x in leaves]
+            for name, a, c in zip(("dq", "dk", "dv"), grads[str(device)], grads["cpu"]):
+                lm_close(f"flash backward {dt} {name} {FLASH_BWD}", a, c, rel * float(c.abs().max()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase_train(device, model, params) -> dict:
+    """The training path in the full run (reusing phase_lm's full olmo-1b
+    weights): a MAGMCorpus at the CLI's default n = 2^12 (kernel 1 read
+    around its build), TRAIN_SMOKE_STEPS train steps at batch 8 x 128
+    (finite loss and grad norm, step ms), the smoke configs' train step
+    card == CPU in float32 and flash's backward card == CPU."""
+    t = time.perf_counter()
+    corpus, info = train_corpus(device, TRAIN_GRAPH_LOG2_N, model.cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    run, _ = train_run(model, trainable(params), corpus, TRAIN_SMOKE_STEPS, "olmo-1b 8x128", profile=False)
+    train_smoke_cross_device(device)
+    flash_bwd_cross_device(device)
+    log(f"train phase seconds={time.perf_counter() - t}")
+    return {"corpus": info, "olmo-1b": run}
+
+
+def supervisor_gate(device, corpus, workdir: str) -> dict:
+    """The crash-restart supervisor at full width (olmo-1b cut to SUP_LAYERS
+    layers): SUP_STEPS steps with an InjectedFault before step SUP_FAULT and
+    checkpoints every SUP_EVERY (keep 2) end on the params and optimizer
+    state of an uninterrupted run, bit for bit."""
+    cfg = dataclasses.replace(lm_configs.get("olmo-1b"), num_layers=SUP_LAYERS)
+    model = lm_model.build(cfg)
+    with torch.no_grad():
+        params = model.init(prng.PRNGKey(SEED), device=device)
+    step_fn = lm_steps.make_train_step(model, opt_lib.OptConfig(lr=1e-3, warmup_steps=2, total_steps=30))
+    p0, s0 = params, opt_lib.init(params)
+    for i in range(SUP_STEPS):
+        p0, s0, _ = step_fn(p0, s0, corpus.batch(i))
+    fired = []
+
+    def hook(step):
+        if step == SUP_FAULT and not fired:
+            fired.append(step)
+            raise fault.InjectedFault(f"injected before step {step}")
+
+    sup = fault.TrainSupervisor(step_fn, corpus.batch, workdir, ckpt_every=SUP_EVERY, fault_hook=hook, keep=2)
+    t = time.perf_counter()
+    p1, s1, metrics = sup.run(params, opt_lib.init(params), SUP_STEPS)
+    sup_s = time.perf_counter() - t
+    same = [bool(torch.equal(a, c)) for a, c in zip(ckpt_mod._flatten({"p": p0, "s": s0})[0],
+                                                    ckpt_mod._flatten({"p": p1, "s": s1})[0])]
+    ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(workdir) for f in fs)
+    info = {"layers": SUP_LAYERS, "params": cfg.param_count(), "restarts": sup.restarts, "executed": len(metrics),
+            "leaves_equal": sum(same), "leaves": len(same), "supervised_s": sup_s,
+            "bytes_on_disk": ckpt_bytes, "losses": [m["loss"] for m in metrics]}
+    log(f"train supervisor gate: {json.dumps(info)}")
+    if not (fired and sup.restarts == 1 and all(same)):
+        raise AssertionError(f"supervisor gate: replay differs from the uninterrupted run ({info})")
+    return info
+
+
+def train_cli(device, args: list, what: str) -> float:
+    """``python -m repro_torch.launch.train`` on the card; its seconds."""
+    t = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *args, "--device", str(device)]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    cli_s = time.perf_counter() - t
+    for line in out.stdout.splitlines():
+        log(f"train cli {what}: {line}")
+    if out.returncode != 0 or "[train] OK" not in out.stdout:
+        raise AssertionError(f"train cli {what} failed ({out.returncode}): {out.stderr[-2000:]}")
+    return cli_s
+
+
+def phase_train_full(device) -> dict:
+    """--train: full olmo-1b on a MAGMCorpus at n = 2^15, TRAIN_STEPS steps
+    at batch 8 x 128 (the loss falls) and TRAIN_4K_STEPS at train_4k's
+    sequence (batch cut to 4), the supervisor gate, and the train CLI on
+    the smoke config and at full width (disk permitting)."""
+    out = {}
+    cfg = lm_configs.get("olmo-1b")
+    model = lm_model.build(cfg)
+    t = time.perf_counter()
+    with torch.no_grad():
+        params = model.init(prng.PRNGKey(SEED), device=device)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t
+    corpus, out["corpus"] = train_corpus(device, TRAIN_FULL_GRAPH_LOG2_N, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    out["8x128"], params = train_run(model, params, corpus, TRAIN_STEPS, "olmo-1b 8x128")
+    losses = out["8x128"]["losses"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"olmo-1b 8x128: the loss did not fall ({losses})")
+    b4k, s4k = TRAIN_4K
+    log(f"train olmo-1b at train_4k's sequence: global batch cut from 256 to {b4k} to fit one card")
+    corpus4k, out["corpus_4k"] = train_corpus(device, TRAIN_FULL_GRAPH_LOG2_N, cfg.vocab_size, b4k, s4k)
+    out["4x4096"], params = train_run(model, params, corpus4k, TRAIN_4K_STEPS, "olmo-1b 4x4096")
+    del params, corpus4k
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        out["disk_free_bytes"] = shutil.disk_usage(work).free
+        log(f"train checkpoints in {work}: {out['disk_free_bytes']} bytes free")
+        out["supervisor"] = supervisor_gate(device, corpus, os.path.join(work, "supervisor"))
+        out["cli_smoke_s"] = train_cli(device, ["--smoke", "--steps", str(TRAIN_CLI_STEPS), "--batch", "2",
+                                                "--seq", "32", "--graph-nodes", "512", "--ckpt-every", "4",
+                                                "--ckpt-dir", os.path.join(work, "smoke")], "smoke")
+        full_ckpt = 28 * cfg.param_count() // 2  # bf16 params + float32 mu, nu, master: 14 bytes a param
+        if out["disk_free_bytes"] > 3 * full_ckpt:
+            out["cli_full_s"] = train_cli(device, ["--steps", "20", "--ckpt-dir", os.path.join(work, "full")], "full")
+        else:
+            log(f"train cli full width left out: two checkpoints of {full_ckpt} bytes and a save's "
+                f"temporary copy do not fit {out['disk_free_bytes']} free")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -2725,6 +3050,15 @@ def main(argv) -> int:
         log(json.dumps({"lm": {k: {m: v[m] for m in ("prefill_ms", "decode_ms", "tokens_per_s", "decode_bound_ms")}
                                for k, v in lm.items()}}))
         return 0
+    if argv == ["--train"]:
+        t = time.perf_counter()
+        tr = phase_train_full(device)
+        log(f"train seconds={time.perf_counter() - t}")
+        log(nvidia_smi())
+        log(json.dumps({"train": {k: {m: v[m] for m in ("warm_step_ms", "tokens_per_s", "mfu", "bound_ms",
+                                                          "max_memory_allocated")}
+                                  for k, v in tr.items() if k in ("8x128", "4x4096")}}))
+        return 0
     if argv == ["--split"]:
         split = phase_split_and_batches(device, MAGMSampler(paper_config(FULL_LOG2_N, device)))
         t = time.perf_counter()
@@ -2756,7 +3090,10 @@ def main(argv) -> int:
     phase_validation_suite(device)
     phase_resilience_and_serving(device, sampler)
     fit_launches = phase_magfit(device)
-    phase_lm(device)
+    _, (olmo, olmo_params) = phase_lm(device, keep=True)
+    train = phase_train(device, olmo, olmo_params)
+    del olmo_params
+    torch.cuda.empty_cache()
     log(f"balldrop launches: n=2^{FULL_LOG2_N} {bd_launches} n=2^{HOST_LOG2_N} {bd_host_launches}")
 
     kernels = [
@@ -2765,8 +3102,10 @@ def main(argv) -> int:
             "route": "cuda",
             "source": "src/repro_torch/csrc/quilt_prng_descent_lookup.cu",
             "replaces": "src/repro/kernels/quadrant_descent.py:516",
-            # the main path's exact sample, and MAGFIT's round trip and cap sample
-            "launches": full["launches"] + fit_launches["quilt_prng_descent_lookup"],
+            # the main path's exact sample, MAGFIT's round trip and cap
+            # sample, and the training corpus's split
+            "launches": full["launches"] + fit_launches["quilt_prng_descent_lookup"]
+            + train["corpus"]["quilt_prng_descent_lookup"],
             "max_abs_err": max(check["max_abs_err"], bd_err, split["max_abs_err"]),
             "ms": full["ms"],
             "plain_ms": full["plain_ms"],

@@ -8,7 +8,7 @@ operations over the peak rate for their type.
   unavoidable HBM traffic (:func:`model_min_bytes`, GB), the reference's
   ``repro.analysis.roofline`` arithmetic on the config and the cache
   shapes, with no allocation (the cache is laid out on the ``meta``
-  device).
+  device); a train step's bound (:func:`train_step_bound_ms`).
 
 The reference's file holds TPU v5e constants and parses XLA's HLO text
 (``collective_bytes``, ``Roofline``, ``build``): those parts belong to the
@@ -141,3 +141,22 @@ def model_min_bytes(cfg, shape, *, chips: int) -> float:
         for leaf in cache.values():
             cbytes += float(leaf.numel()) * leaf.element_size()
     return (pbytes + cbytes) / chips / 1e9
+
+
+# AdamW's least traffic a parameter: read the bf16 gradient (2) and the
+# float32 mu, nu and master (12); write mu, nu and master (12) and the bf16
+# parameter (2)
+OPT_BYTES_PER_PARAM = 28
+
+
+def train_step_bound_ms(cfg, batch: int, seq: int) -> tuple:
+    """Least time of one train step of ``batch`` x ``seq`` tokens on this
+    card: its useful FLOPs (:func:`model_flops`, 6 N D) at the bf16 peak, or
+    the optimizer's bytes (``OPT_BYTES_PER_PARAM`` a parameter) at the HBM
+    rate, whichever is larger."""
+    from repro_torch.configs.base import ShapeConfig
+
+    flops = model_flops(cfg, ShapeConfig("train", seq, batch, "train"), chips=1) * 1e9
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = OPT_BYTES_PER_PARAM * cfg.param_count() / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")

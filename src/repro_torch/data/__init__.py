@@ -1,1 +1,2 @@
-"""repro_torch.data — graph data helpers (:mod:`pipeline`: ``build_csr``)."""
+"""repro_torch.data — the random-walk corpus over a quilted MAGM graph
+and ``build_csr`` (:mod:`pipeline`)."""

@@ -9,12 +9,17 @@ would offer for restore; a crash between the two renames is finished by
 :func:`_recover`.  The chaos sites ``checkpoint.write`` and
 ``checkpoint.rename`` sit where the reference has them.
 
-A tree is nested dicts, lists and tuples (named tuples too) of numpy arrays
-or scalars; ``None`` holds no leaf.  Leaves are numbered in ``jax.tree``'s
-order (dict keys sorted), so leaf ``i`` names the same field in both
-packages and each restores the other's checkpoints.  :func:`restore` takes
-a TARGET tree that fixes the structure and the expected leaf shapes and
-dtypes; a mismatch raises ValueError.  Restored leaves are numpy arrays.
+A tree is nested dicts, lists and tuples (named tuples too) of torch
+tensors (on any device), numpy arrays or scalars; ``None`` holds no leaf.
+Leaves are numbered in ``jax.tree``'s order (dict keys sorted), so leaf
+``i`` names the same field in both packages and each restores the other's
+checkpoints (a training state too: bf16 params and an ``OptState``).  A
+bfloat16 leaf is written as its raw 16-bit words under dtype
+``"bfloat16"``, the reference's bytes, without ``ml_dtypes``.
+:func:`restore` takes a TARGET tree that fixes the structure and the
+expected leaf shapes and dtypes; a mismatch raises ValueError.  A torch
+target leaf comes back as a tensor on its device in its dtype, any other
+as a numpy array.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import shutil
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.dist import chaos
 
@@ -35,11 +41,36 @@ def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"{_PREFIX}{step}")
 
 
+_BF16 = "bfloat16"
+
+
 def _np_dtype(name: str) -> np.dtype:
+    """The numpy dtype whose bytes a leaf of dtype ``name`` holds: bfloat16
+    leaves are read as their 16-bit words."""
+    if name == _BF16:
+        return np.dtype(np.int16)
     try:
         return np.dtype(name)
     except TypeError:
         raise ValueError(f"checkpoint dtype {name!r} is not a numpy dtype") from None
+
+
+def _dtype_name(leaf: Any) -> str:
+    """A leaf's dtype as the checkpoint names it (numpy's names)."""
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).removeprefix("torch.")
+    return str(np.dtype(leaf.dtype))
+
+
+def _host_array(leaf: Any) -> Tuple[np.ndarray, str]:
+    """``(array holding the leaf's bytes, dtype name)``; a tensor is copied
+    to the host, a bfloat16 tensor as its int16 words."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        name = _dtype_name(t)
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy(), name
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
 
 
 def _flatten(tree: Any) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
@@ -110,8 +141,8 @@ def save(directory: str, step: int, tree: Any) -> str:
     os.makedirs(tmp)
     meta: Dict[str, Any] = {"step": int(step), "leaves": []}
     for i, leaf in enumerate(leaves):
-        arr = np.asarray(leaf)
-        meta["leaves"].append({"shape": list(arr.shape), "dtype": str(arr.dtype)})
+        arr, name = _host_array(leaf)
+        meta["leaves"].append({"shape": list(arr.shape), "dtype": name})
         with open(os.path.join(tmp, f"{i:05d}.bin"), "wb") as f:
             f.write(arr.tobytes())
     with open(os.path.join(tmp, "meta.json"), "w") as f:
@@ -134,8 +165,11 @@ def save(directory: str, step: int, tree: Any) -> str:
 def restore(directory: str, step: int, target: Any, *, shardings: Optional[Any] = None) -> Tuple[Any, Dict[str, Any]]:
     """Load checkpoint ``step`` into the structure of ``target``.
 
-    Returns (tree, meta) with numpy leaves.  Raises ValueError when the
-    stored leaves do not match the target's count, shapes or dtypes.
+    Returns (tree, meta): where the target's leaf is a tensor, a tensor on
+    its device and in its dtype, else a numpy array (a bfloat16 leaf in the
+    target's own bfloat16 numpy dtype, or as a CPU tensor).  Raises
+    ValueError when the stored leaves do not match the target's count,
+    shapes or dtypes.
     ``shardings`` (the reference's elastic restore onto a mesh) raises
     ``NotImplementedError``: meshes are ROADMAP queue 1 item 7b.
     """
@@ -167,16 +201,28 @@ def restore(directory: str, step: int, target: Any, *, shardings: Optional[Any] 
                 f"leaf {i}: checkpoint shape {shape} != target shape "
                 f"{tuple(np.shape(t_leaf))}"
             )
-        dtype = _np_dtype(entry["dtype"])
-        t_dtype = getattr(t_leaf, "dtype", None)
-        if t_dtype is not None and np.dtype(t_dtype) != dtype:
+        name = entry["dtype"]
+        words = _np_dtype(name)
+        if getattr(t_leaf, "dtype", None) is not None and _dtype_name(t_leaf) != name:
             raise ValueError(
-                f"leaf {i}: checkpoint dtype {dtype} != target dtype "
-                f"{np.dtype(t_dtype)}"
+                f"leaf {i}: checkpoint dtype {name} != target dtype {_dtype_name(t_leaf)}"
             )
         with open(os.path.join(path, f"{i:05d}.bin"), "rb") as f:
-            out.append(np.frombuffer(bytearray(f.read()), dtype=dtype).reshape(shape))
+            arr = np.frombuffer(bytearray(f.read()), dtype=words).reshape(shape)
+        out.append(_leaf_like(arr, name, t_leaf))
     return unflatten(out), meta
+
+
+def _leaf_like(arr: np.ndarray, name: str, target: Any) -> Any:
+    """The stored words ``arr`` as the target's kind of leaf."""
+    bf16 = name == _BF16
+    if isinstance(target, torch.Tensor):
+        t = torch.from_numpy(arr)
+        return (t.view(torch.bfloat16) if bf16 else t).to(target.device)
+    if bf16:  # a numpy bfloat16 target (ml_dtypes' dtype, which the port does not import)
+        dt = getattr(target, "dtype", None)
+        return arr.view(dt) if dt is not None else torch.from_numpy(arr).view(torch.bfloat16)
+    return arr
 
 
 def available_steps(directory: str) -> list[int]:

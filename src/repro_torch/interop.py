@@ -2,7 +2,7 @@
 
 :func:`from_reference` serves MAGM sessions and MAGFIT,
 :func:`kpgm_from_reference` KPGM sessions, :func:`lm_params_from_reference`
-the LM's weights.
+the LM's weights and :func:`opt_state_from_reference` its AdamW state.
 
 A sampler has no weights; what the two packages must share to give the
 same graph is the initiator thetas, the attribute matrix and the key.
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import kpgm, magm
 from repro_torch.fit.magfit import FitResult
+from repro_torch.train.optimizer import OptState
 
 
 def from_reference(
@@ -109,3 +110,17 @@ def lm_params_from_reference(params: Any, device=None) -> Any:
         return {k: lm_params_from_reference(v, device) for k, v in params.items()}
     t = _leaf_tensor(params)
     return t if device is None else t.to(device)
+
+
+def opt_state_from_reference(state: Any, device=None) -> OptState:
+    """The port's :class:`OptState` from a reference ``OptState`` (its
+    fields as numpy arrays, or anything ``numpy.asarray`` reads): the int32
+    step and the float32 moment and master trees, same bits, on ``device``
+    (default: the CPU)."""
+    step, mu, nu, master = state
+    return OptState(
+        step=lm_params_from_reference(np.asarray(step, dtype=np.int32), device),
+        mu=lm_params_from_reference(mu, device),
+        nu=lm_params_from_reference(nu, device),
+        master=lm_params_from_reference(master, device),
+    )

@@ -1,5 +1,6 @@
-"""Flash attention, forward: an online softmax over ``(q_chunk, kv_chunk)``
-blocks, the reference's ``repro.models.flash`` arithmetic in PyTorch.
+"""Flash attention: an online softmax over ``(q_chunk, kv_chunk)`` blocks
+and its block-recomputing backward, the reference's ``repro.models.flash``
+arithmetic in PyTorch.
 
 Per query chunk, a running max ``m``, normaliser ``l`` and accumulator
 ``acc`` (all float32) are carried over the key chunks:
@@ -13,10 +14,21 @@ heads, broadcast to H heads one chunk at a time, so a full-length repeated
 K/V never exists.  Masks (causal, sliding window, ``q_offset``) come from
 absolute positions.  The score and PV products take the reference's
 ``preferred_element_type=float32``: both operands are widened to float32
-(exact for bf16) and summed in float32.
+(exact for bf16) and summed in float32 (float64 inputs stay float64).
 
-The backward (the reference's custom VJP) belongs to training and is not
-here.
+The backward (the reference's custom VJP, here a
+``torch.autograd.Function``) keeps only ``(q, k, v, out, lse)`` from the
+forward and recomputes each block's probabilities:
+
+    delta = rowsum(dO * O)
+    p     = exp(q k^T * scale - lse)
+    ds    = p * (dO V^T - delta) * scale
+    dq   += ds K;   dk += ds^T q;   dv += p^T dO
+
+over key chunks outside and query chunks inside, each product in float32
+from operands cast as the reference casts them (``ds`` and ``p`` to the
+inputs' dtype).  GQA's dk/dv are summed over each KV head's group.  Only
+q, k and v are differentiable; the other arguments are static.
 """
 
 from __future__ import annotations
@@ -37,9 +49,16 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool, window: int) -> 
     return m
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulation dtype: float32, or float64 for float64 inputs (which
+    the float64 gradient check feeds)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _f32_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.einsum(spec, a, b, preferred_element_type=float32)``."""
-    return torch.einsum(spec, a.float(), b.float())
+    w = _acc_dtype(torch.promote_types(a.dtype, b.dtype))
+    return torch.einsum(spec, a.to(w), b.to(w))
 
 
 def flash_attention(
@@ -52,8 +71,27 @@ def flash_attention(
     q_chunk: int,
     kv_chunk: int,
 ) -> torch.Tensor:
-    out, _ = _flash_fwd_impl(q, k, v, causal, window, q_offset, q_chunk, kv_chunk)
+    args = (causal, window, q_offset, q_chunk, kv_chunk)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Flash.apply(q, k, v, *args)
+    out, _ = _flash_fwd_impl(q, k, v, *args)  # serving: nothing to save
     return out
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp`` with ``nondiff_argnums=(3..7)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, kv_chunk):
+        out, lse = _flash_fwd_impl(q, k, v, causal, window, q_offset, q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_offset, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd_impl(*ctx.saved_tensors, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _flash_fwd_impl(q, k, v, causal, window, q_offset, q_chunk, kv_chunk) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -64,15 +102,15 @@ def _flash_fwd_impl(q, k, v, causal, window, q_offset, q_chunk, kv_chunk) -> Tup
     scale = hd**-0.5
     qc, kc = q_chunk, kv_chunk
     nq, nk = sq // qc, sk // kc
-    dev = q.device
+    dev, acc_t = q.device, _acc_dtype(q.dtype)
 
     outs, lses = [], []
     for qi in range(nq):
         qblk = q[:, qi * qc : (qi + 1) * qc]
         qpos = q_offset + qi * qc + torch.arange(qc, device=dev)
-        m = torch.full((b, h, qc), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((b, h, qc), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, h, qc, hd), dtype=torch.float32, device=dev)
+        m = torch.full((b, h, qc), NEG_INF, dtype=acc_t, device=dev)
+        l = torch.zeros((b, h, qc), dtype=acc_t, device=dev)
+        acc = torch.zeros((b, h, qc, hd), dtype=acc_t, device=dev)
         for ki in range(nk):
             kblk = k[:, ki * kc : (ki + 1) * kc]
             vblk = v[:, ki * kc : (ki + 1) * kc]
@@ -94,6 +132,54 @@ def _flash_fwd_impl(q, k, v, causal, window, q_offset, q_chunk, kv_chunk) -> Tup
         lses.append(m + torch.log(l_safe))  # (b, h, qc)
     out = torch.cat(outs, dim=2).transpose(1, 2)  # (b, sq, h, hd)
     return out, torch.cat(lses, dim=2)
+
+
+def _flash_bwd_impl(q, k, v, out, lse, dout, causal, window, q_offset, q_chunk, kv_chunk):
+    """``(dq, dk, dv)`` in the dtypes of q, k and v: the reference's
+    ``_bwd``, its two scans as loops in the same order (key chunks outside,
+    query chunks inside, each accumulator summed from zero)."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    scale = hd**-0.5
+    qc, kc = q_chunk, kv_chunk
+    nq, nk = sq // qc, sk // kc
+    dev, acc_t = q.device, _acc_dtype(q.dtype)
+
+    delta = _f32_einsum("bqhd,bqhd->bhq", dout, out)  # (b, h, sq)
+    dq = torch.zeros((b, sq, h, hd), dtype=acc_t, device=dev)
+    dk = torch.empty((b, sk, kvh, hd), dtype=acc_t, device=dev)
+    dv = torch.empty((b, sk, kvh, hd), dtype=acc_t, device=dev)
+    for ki in range(nk):
+        ks = slice(ki * kc, (ki + 1) * kc)
+        kblk, vblk = k[:, ks], v[:, ks]
+        if rep > 1:  # GQA: broadcast KV -> H for this chunk only
+            kblk = kblk.repeat_interleave(rep, dim=2)
+            vblk = vblk.repeat_interleave(rep, dim=2)
+        kpos = ki * kc + torch.arange(kc, device=dev)
+        dk_blk = torch.zeros((b, kc, kvh, hd), dtype=acc_t, device=dev)
+        dv_blk = torch.zeros((b, kc, kvh, hd), dtype=acc_t, device=dev)
+        for qi in range(nq):
+            qs = slice(qi * qc, (qi + 1) * qc)
+            qblk, doblk = q[:, qs], dout[:, qs]
+            qpos = q_offset + qi * qc + torch.arange(qc, device=dev)
+            s = _f32_einsum("bqhd,bkhd->bhqk", qblk, kblk) * scale
+            s = torch.where(_mask(qpos, kpos, causal, window)[None, None], s, NEG_INF)
+            p = torch.exp(s - lse[:, :, qs, None])  # (b, h, qc, kc)
+            dp = _f32_einsum("bqhd,bkhd->bhqk", doblk, vblk)
+            ds = p * (dp - delta[:, :, qs, None]) * scale
+            dq_b = _f32_einsum("bhqk,bkhd->bqhd", ds.to(kblk.dtype), kblk)
+            dk_b = _f32_einsum("bhqk,bqhd->bkhd", ds.to(qblk.dtype), qblk)
+            dv_b = _f32_einsum("bhqk,bqhd->bkhd", p.to(doblk.dtype), doblk)
+            if rep > 1:  # group-sum the broadcast back to KV heads
+                dk_b = dk_b.reshape(b, kc, kvh, rep, hd).sum(3)
+                dv_b = dv_b.reshape(b, kc, kvh, rep, hd).sum(3)
+            dk_blk = dk_blk + dk_b
+            dv_blk = dv_blk + dv_b
+            dq[:, qs] += dq_b
+        dk[:, ks] = dk_blk
+        dv[:, ks] = dv_blk
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ref_attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0) -> torch.Tensor:

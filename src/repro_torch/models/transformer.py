@@ -5,7 +5,9 @@ forward (train / prefill) and single-token decode — the reference's
 The reference stacks each homogeneous group of layers (leading axis L) and
 scans it with ``lax.scan``; the port keeps the stacked layout, so that the
 reference's params map onto the port's leaf by leaf, and runs the scan as
-a Python loop over the leading axis.  ``init_model`` draws the reference's
+a Python loop over the leading axis.  Under autograd the forward runs each
+block under ``torch.utils.checkpoint`` (``remat``: the reference's
+``jax.checkpoint`` per layer, full remat, nothing saved inside a block).  ``init_model`` draws the reference's
 bits: ``jax.vmap`` over ``split(key, L)`` equals a loop over the split
 keys.  The other families raise ``NotImplementedError`` naming their
 ROADMAP item (``kvcache.require_dense``).
@@ -13,9 +15,10 @@ ROADMAP item (``kvcache.require_dense``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
@@ -45,6 +48,15 @@ def tree_leaves(tree):
 def layer(stack: Params, i: int) -> Params:
     """Layer ``i`` of a stacked group (views, no copy)."""
     return tree_map(lambda a: a[i], stack)
+
+
+def unbind_layers(stack: Params) -> List[Params]:
+    """Every layer of a stacked group, from one ``torch.unbind`` per leaf.
+    Under autograd the views' gradients flow back as one ``stack`` per
+    leaf; indexing each layer (:func:`layer`) would instead write a
+    full-size zero tensor per layer and leaf in the backward."""
+    parts = tree_map(lambda a: a.unbind(0), stack)  # a tuple of L views per leaf
+    return [tree_map(lambda views, i=i: views[i], parts) for i in range(num_layers(stack))]
 
 
 def num_layers(stack: Params) -> int:
@@ -183,18 +195,23 @@ def forward(
 ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Full-sequence forward.  Returns (logits (B, S, V) float32, aux_loss,
     (kvs, None)); kvs = (K, V) stacked (L, B, S, KV, hd) when
-    ``collect_kv``.  ``remat`` is accepted for the reference's signature;
-    serving runs without autograd, so there is nothing to recompute."""
+    ``collect_kv``.  With ``remat`` and autograd on, each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, not kept.  Serving runs without autograd,
+    where ``remat`` changes nothing."""
     require_dense(cfg)
-    del remat
     b, s_len = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(s_len, dtype=torch.int32, device=x.device)[None].expand(b, s_len)
     kind = block_kind(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    recompute = remat and torch.is_grad_enabled()
     ks, vs = [], []
-    for i in range(num_layers(params["blocks"])):
-        x, a, kv = apply_block(layer(params["blocks"], i), x, cfg, kind, positions=positions)
+    for bp in unbind_layers(params["blocks"]):
+        if recompute:
+            x, a, kv = checkpoint(apply_block, bp, x, cfg, kind, positions=positions, use_reentrant=False)
+        else:
+            x, a, kv = apply_block(bp, x, cfg, kind, positions=positions)
         aux = aux + a
         if collect_kv:
             ks.append(kv[0])

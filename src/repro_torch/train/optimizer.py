@@ -3,7 +3,9 @@ schedule, over dicts of tensors.
 
 The reference's update written out by hand: ``torch.optim.AdamW`` neither
 clips by the global norm nor floors the cosine at 0.1, and MAGFIT's M-step
-needs exactly this function.  A tree here is a dict of tensors, nested
+and the LM's train step need exactly this function.  The update is out of
+place, as the reference's: it holds the old and the new state at once
+(at olmo-1b, two copies of ~14.2 GB of float32 moments and masters).  A tree here is a dict of tensors, nested
 dicts allowed; leaves are visited in sorted key order, as ``jax.tree``
 visits a dict's, so the global norm sums them in the reference's order.
 """

@@ -1,9 +1,14 @@
-"""The port's flash attention forward (``repro_torch.models.flash``) against
-the reference's ``repro.models.flash`` and both packages' dense softmax
-oracle ``ref_attention``: mask modes, GQA ratios, a ``q_offset``
-continuation, chunk shapes and extreme logits.  float32 inputs from a
-seeded numpy generator; the reference runs under the ``ref`` fixture.
-Tolerance: 1e-5 abs (float32 sums in another order).
+"""The port's flash attention (``repro_torch.models.flash``) against the
+reference's ``repro.models.flash`` and both packages' dense softmax oracle
+``ref_attention``: mask modes, GQA ratios, a ``q_offset`` continuation,
+chunk shapes and extreme logits; and the backward (``_Flash``, the
+reference's custom VJP) against ``jax.vjp`` of the reference's
+``flash_attention``, and a float64 ``torch.autograd.gradcheck``.  Inputs
+from a seeded numpy generator; the reference runs under the ``ref``
+fixture.  Tolerances: the forward 1e-5 abs (float32 sums in another
+order); dq, dk, dv in float32 within 1e-5 x max|grad|, in bf16 within
+BF16_GRAD_REL x max|grad| (bf16 inputs and outputs, ``ds`` and ``p``
+rounded to bf16 before their products, as the reference rounds them).
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from repro_torch.models import flash
 from test_torch_reference import ref  # noqa: F401  (fixture)
 
 ATOL = 1e-5
+GRAD_REL = 1e-5
+BF16_GRAD_REL = 2.0**-7  # two bf16 ulps at max|grad|
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -37,8 +44,13 @@ def rflash(ref):
     import jax
 
     mod = importlib.import_module("repro.models.flash")
+    def vjp(q, k, v, dout, *static):
+        out, back = jax.vjp(lambda q, k, v: mod.flash_attention(q, k, v, *static), q, k, v)
+        return (out, *back(dout))
+
     return types.SimpleNamespace(
         flash_attention=jax.jit(mod.flash_attention, static_argnums=(3, 4, 5, 6, 7)),
+        vjp=jax.jit(vjp, static_argnums=(4, 5, 6, 7, 8)),
         ref_attention=jax.jit(mod.ref_attention, static_argnames=("causal", "window", "q_offset")),
     )
 
@@ -124,3 +136,78 @@ def test_lse_is_the_log_normaliser():
     mask = torch.arange(16)[None, :] <= torch.arange(16)[:, None]
     want = torch.logsumexp(torch.where(mask, s, -torch.inf), dim=-1)
     assert float((lse - want).abs().max()) <= ATOL
+
+
+# --- the backward ---------------------------------------------------------------
+
+BWD_CASES = [  # (causal, window, q_offset, h, kv, sq, sk, qc, kc)
+    (True, 0, 0, 4, 4, 32, 32, 8, 16),  # causal, several chunks both ways
+    (True, 12, 0, 8, 2, 32, 32, 8, 8),  # sliding window, GQA rep 4
+    (False, 0, 0, 6, 3, 16, 48, 8, 16),  # non-causal, GQA rep 2, Sk != Sq
+    (True, 0, 24, 4, 2, 8, 32, 4, 8),  # a q_offset continuation
+]
+
+
+def _grads(q, k, v, dout, *static):
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = flash.flash_attention(qt, kt, vt, *static)
+    out.backward(torch.from_numpy(dout))
+    return out.detach(), qt.grad, kt.grad, vt.grad
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=["causal", "window_gqa4", "noncausal_gqa2", "q_offset"])
+def test_backward_matches_reference_vjp(rflash, case):
+    import jax.numpy as jnp
+
+    causal, window, q_offset, h, kv, sq, sk, qc, kc = case
+    q, k, v = _inputs(2, sq, sk, h, kv, 8, seed=sum(case))
+    q, k, v = q[:, :sq], k[:, :sk], v[:, :sk]
+    dout = np.random.default_rng(sum(case) + 1).standard_normal(q.shape).astype(np.float32)
+    static = (causal, window, q_offset, qc, kc)
+    want = [np.asarray(x) for x in rflash.vjp(*(jnp.asarray(a) for a in (q, k, v, dout)), *static)]
+    got = _grads(q, k, v, dout, *static)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        bound = ATOL if name == "out" else GRAD_REL * float(np.abs(w).max())
+        _close(f"{case} {name}", g.numpy(), w, atol=bound)
+        assert g.dtype == torch.float32
+
+
+def test_backward_bf16_matches_reference_vjp(rflash):
+    import jax.numpy as jnp
+
+    case = BWD_CASES[1]
+    causal, window, q_offset, h, kv, sq, sk, qc, kc = case
+    q, k, v = _inputs(2, sq, sk, h, kv, 8, seed=3)
+    dout = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
+    static = (causal, window, q_offset, qc, kc)
+    want = [np.asarray(x.astype(jnp.float32))
+            for x in rflash.vjp(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, dout)), *static)]
+    qt, kt, vt = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True) for a in (q, k, v))
+    out = flash.flash_attention(qt, kt, vt, *static)
+    out.backward(torch.from_numpy(dout).to(torch.bfloat16))
+    for name, g, w in zip(("out", "dq", "dk", "dv"), (out.detach(), qt.grad, kt.grad, vt.grad), want):
+        assert g.dtype == torch.bfloat16, name
+        _close(f"bf16 {name}", g.float().numpy(), w, atol=BF16_GRAD_REL * float(np.abs(w).max()))
+
+
+def test_backward_gradcheck_float64():
+    """The Function's backward is the derivative of its forward (float64,
+    finite differences), causal with GQA and several chunks."""
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((1, 8, 4, 4))).requires_grad_(True)
+    k = torch.from_numpy(rng.standard_normal((1, 8, 2, 4))).requires_grad_(True)
+    v = torch.from_numpy(rng.standard_normal((1, 8, 2, 4))).requires_grad_(True)
+    for static in ((True, 0, 0, 4, 4), (False, 3, 0, 2, 4)):
+        assert torch.autograd.gradcheck(lambda q, k, v: flash._Flash.apply(q, k, v, *static), (q, k, v))
+
+
+def test_serving_calls_skip_the_function():
+    """Without autograd (serving) the forward runs alone and returns the
+    same output as under autograd."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 16, 4, 2, 8, seed=9))
+    with torch.no_grad():
+        plain = flash.flash_attention(q, k, v, True, 0, 0, 8, 8)
+    assert plain.grad_fn is None
+    tracked = flash.flash_attention(q.requires_grad_(True), k, v, True, 0, 0, 8, 8)
+    assert type(tracked.grad_fn).__name__ == "_FlashBackward"
+    assert torch.equal(plain, tracked.detach())
