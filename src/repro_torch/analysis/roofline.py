@@ -130,8 +130,8 @@ def model_flops(cfg, shape, *, chips: int) -> float:
 
 def model_min_bytes(cfg, shape, *, chips: int) -> float:
     """Unavoidable per-chip HBM GB per step: weights (bf16, read once) plus,
-    for decode, the full KV cache stream (``kvcache.init_cache``'s layout,
-    dense family)."""
+    for decode, the full cache stream (``kvcache.init_cache``'s layout, any
+    family: KV, SSM state and conv tails, the encoder output)."""
     from repro_torch.models import kvcache
 
     pbytes = cfg.param_count() * 2.0  # bf16 weights

@@ -1,8 +1,8 @@
 """Serving: the LM decode loop, or MAGM graph sampling as a service.
 
 LM mode (the default: prefill a prompt batch, then greedy-decode tokens;
-the dense family, full ``olmo-1b`` unless ``--arch``/``--smoke`` say
-otherwise):
+any of the ten archs, full ``olmo-1b`` unless ``--arch``/``--smoke`` say
+otherwise; the vlm and audio families get the reference's zero context):
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch olmo-1b] \
         [--smoke] [--batch 4] [--prompt-len 32] [--gen 16] [--device cuda]
@@ -381,34 +381,45 @@ def serve_graphs(args) -> None:
 
 class LMRun(NamedTuple):
     """What :func:`serve_lm` served: the model, its params and prompts, the
-    generated tokens and the prefill's logits."""
+    generated tokens, the prefill's logits and the context."""
 
     model: Any
     params: Dict[str, Any]
     prompts: torch.Tensor  # (B, S) int32, on the device
     tokens: torch.Tensor  # (B, gen) int32, on the CPU
     logits: torch.Tensor  # (B, S, V) float32 prefill logits, on the device
+    context: Optional[torch.Tensor] = None  # serve_context's, on the device
 
 
-def greedy_generate(model, params, prompts: torch.Tensor, gen: int):
-    """The serve loop: prefill ``prompts`` (B, S) into a cache of S + gen
-    positions, then ``gen - 1`` greedy decode steps.  Returns the (B, gen)
-    int32 tokens (on the device; the host is not waited for) and the
-    prefill's logits."""
+def greedy_generate(model, params, prompts: torch.Tensor, gen: int, context=None):
+    """The serve loop: prefill ``prompts`` (B, S) (with the vlm's or audio
+    family's ``context``) into a cache of S + gen positions, then
+    ``gen - 1`` greedy decode steps.  Returns the (B, gen) int32 tokens (on
+    the device; the host is not waited for) and the prefill's logits."""
     from repro_torch.train import steps as steps_lib
 
     s = prompts.shape[1]
     prefill = steps_lib.make_prefill_step(model, max_len=s + gen)
     decode = steps_lib.make_decode_step(model)
     with torch.inference_mode():
-        logits, cache = prefill(params, {"tokens": prompts})
+        logits, cache = prefill(params, {"tokens": prompts, "context": context})
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         out = [next_tok]
         for i in range(gen - 1):
-            batch = {"cache": cache, "tokens": next_tok[:, None], "cache_len": s + i}
+            batch = {"cache": cache, "tokens": next_tok[:, None], "cache_len": s + i, "context": context}
             next_tok, _, cache = decode(params, batch)
             out.append(next_tok)
         return torch.stack(out, dim=1), logits
+
+
+def serve_context(cfg, batch: int, device):
+    """The serve CLI's stand-in context: zero image-token embeddings (B,
+    num_image_tokens, D) for the vlm, zero frame embeddings (B,
+    encoder_seq, D) for audio, bfloat16; None for the other families."""
+    from repro_torch.models.model import context_len
+
+    n = context_len(cfg)
+    return None if n is None else torch.zeros((batch, n, cfg.d_model), dtype=torch.bfloat16, device=device)
 
 
 def serve_lm(args) -> LMRun:
@@ -424,8 +435,9 @@ def serve_lm(args) -> LMRun:
         params = model.init(prng.PRNGKey(args.seed), device=device)
         prompts = prng.randint(prng.PRNGKey(args.seed + 1), (args.batch, args.prompt_len), 0, cfg.vocab_size,
                                device=device)
+    context = serve_context(cfg, args.batch, device)
     t0 = time.perf_counter()
-    toks, logits = greedy_generate(model, params, prompts, args.gen)
+    toks, logits = greedy_generate(model, params, prompts, args.gen, context)
     toks = toks.cpu()  # waits for the device
     dt = time.perf_counter() - t0
     print(f"[serve] {cfg.name}: generated {tuple(toks.shape)} in {dt:.2f}s on {device}")
@@ -433,7 +445,7 @@ def serve_lm(args) -> LMRun:
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite prefill logits")
     print("[serve] OK")
-    return LMRun(model, params, prompts, toks, logits)
+    return LMRun(model, params, prompts, toks, logits, context)
 
 
 def build_parser() -> argparse.ArgumentParser:

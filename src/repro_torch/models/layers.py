@@ -1,7 +1,7 @@
-"""Transformer building blocks of the dense family: norms, RoPE, chunked
-(flash) attention with GQA / sliding window, decode attention over a KV
-cache, and the SwiGLU MLP — the reference's ``repro.models.layers`` in
-PyTorch.
+"""Transformer building blocks: norms, RoPE, chunked (flash) attention
+with GQA / sliding window / cross-attention, decode attention over a KV
+cache, the SwiGLU MLP and the sort-based top-k MoE — the reference's
+``repro.models.layers`` in PyTorch.
 
 Conventions (the reference's):
 - Params are plain nested dicts of tensors; ``init_*`` builds them, the
@@ -15,12 +15,12 @@ Conventions (the reference's):
 
 The reference's sharding hints (``dist.hints.shard``, ``current_mesh``)
 are the identity without a mesh and are left out (meshes: ROADMAP queue 1
-item 7b).  The MoE layers wait for the ``moe`` slice.
+item 7b), so ``expert_sharding`` ("ep" / "tp") changes nothing here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -38,6 +38,16 @@ INIT_CHUNK = 1 << 24
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with JAX's dtype promotion: operands of two float dtypes
+    (a bf16 activation against a float32 weight or context) both widen to
+    the wider one first, where PyTorch would raise."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
 
 
 def draw_normal(key: torch.Tensor, shape, scale: float, dtype: torch.dtype, device) -> torch.Tensor:
@@ -115,7 +125,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 
 
-def init_attention(key: torch.Tensor, cfg: ModelConfig, *, device=None) -> Params:
+def init_attention(key: torch.Tensor, cfg: ModelConfig, *, cross: bool = False, device=None) -> Params:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ks = prng.split(key, 4)
     std = d**-0.5
@@ -126,7 +136,7 @@ def init_attention(key: torch.Tensor, cfg: ModelConfig, *, device=None) -> Param
         "wv": draw_normal(ks[2], (d, kv * hd), std, dt, device),
         "wo": draw_normal(ks[3], (h * hd, d), std, dt, device),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
     return p
@@ -172,29 +182,35 @@ def apply_attention(
     cfg: ModelConfig,
     *,
     positions: torch.Tensor,  # (B, S)
+    kv_source: Optional[torch.Tensor] = None,  # cross-attention source (B, S_src, D)
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (K, V) (B, S_cache, KV, hd)
     cache_len: Optional[CacheLen] = None,  # valid prefix of the cache
+    causal: bool = True,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention.  Returns (output, kv).
+    """Self- or cross-attention.  Returns (output, kv).
 
     Forward / prefill (no cache): kv is the roped (K, V) of x, which prefill
     turns into the decode cache.  Decode: the new K/V are written into the
     given cache tensors at ``cache_len`` (at ``cache_len % window`` in a
     sliding-window ring) IN PLACE, attention runs over the cache, and kv is
-    that cache.
+    that cache.  With ``kv_source`` K/V come from that source, with no RoPE,
+    no window and no mask (``causal`` is ignored).
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = x if kv_source is None else kv_source
     q = (x @ p["wq"]).reshape(b, s, h, hd)
-    kproj = (x @ p["wk"]).reshape(b, s, kv, hd)
-    vproj = (x @ p["wv"]).reshape(b, s, kv, hd)
+    kproj = matmul(src, p["wk"]).reshape(b, src.shape[1], kv, hd)
+    vproj = matmul(src, p["wv"]).reshape(b, src.shape[1], kv, hd)
 
     if "q_norm" in p:
         q = rms_head_norm(p["q_norm"], q)
         kproj = rms_head_norm(p["k_norm"], kproj)
 
-    q = apply_rope(q, positions, cfg.rope_theta)
-    kproj = apply_rope(kproj, positions, cfg.rope_theta)
+    is_cross = kv_source is not None
+    if not is_cross:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        kproj = apply_rope(kproj, positions, cfg.rope_theta)
 
     if cache is not None:
         ck, cv = cache
@@ -211,7 +227,8 @@ def apply_attention(
         out = _decode_attention(q, ck, cv, valid_len=valid)
         return out @ p["wo"], (ck, cv)
 
-    out = chunked_attention(q, kproj, vproj, causal=True, window=cfg.sliding_window)
+    out = chunked_attention(q, kproj, vproj, causal=causal and not is_cross,
+                            window=0 if is_cross else cfg.sliding_window)
     return out.reshape(b, s, h * hd) @ p["wo"], (kproj, vproj)
 
 
@@ -232,7 +249,7 @@ def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, vali
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU) and MoE
 # ---------------------------------------------------------------------------
 
 
@@ -251,3 +268,117 @@ def init_mlp(key: torch.Tensor, cfg: ModelConfig, d_ff: Optional[int] = None, *,
 def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(x @ p["w1"]) * (x @ p["w3"])
     return h @ p["w2"]
+
+
+def init_moe(key: torch.Tensor, cfg: ModelConfig, *, device=None) -> Params:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    ks = prng.split(key, 4)
+    dt = _dtype(cfg)
+    std = d**-0.5
+    return {
+        "router": draw_normal(ks[0], (d, e), std, torch.float32, device),
+        "w1": draw_normal(ks[1], (e, d, f), std, dt, device),
+        "w3": draw_normal(ks[2], (e, d, f), std, dt, device),
+        "w2": draw_normal(ks[3], (e, f, d), f**-0.5, dt, device),
+    }
+
+
+def _capacity(tokens_per_row: int, cfg: ModelConfig) -> int:
+    """Slots per expert and batch row: lossless up to 128 routed slots
+    (padded to a multiple of 8), else ``capacity_factor`` x the even share,
+    rounded up to a multiple of 128 past 128 (of 8 below)."""
+    full = tokens_per_row * cfg.experts_per_token
+    if full <= 128:
+        return max(((full + 7) // 8) * 8, cfg.experts_per_token)
+    c = int(full * cfg.capacity_factor / cfg.num_experts)
+    if c >= 128:
+        return ((c + 127) // 128) * 128
+    return max(((c + 7) // 8) * 8, cfg.experts_per_token)
+
+
+class Routing(NamedTuple):
+    """One MoE layer's routing: ``probs`` (B, S, E) float32, the top-k
+    ``gate_idx`` (B, S, k), the row-local stable sort of the S*k routed
+    slots by expert (``order``, ``sorted_e``, and ``sorted_w`` the slots'
+    renormalised gate values), each slot's position in its expert's segment
+    (``seg_pos``) and whether it fits the capacity (``keep``), and the
+    load-balancing ``aux`` loss."""
+
+    probs: torch.Tensor
+    gate_idx: torch.Tensor
+    order: torch.Tensor
+    sorted_e: torch.Tensor
+    sorted_w: torch.Tensor
+    seg_pos: torch.Tensor
+    keep: torch.Tensor
+    aux: torch.Tensor
+
+
+def route_moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """The router of :func:`apply_moe`.  ``jax.lax.top_k`` puts the lower
+    expert first on a tie and ``jnp.argsort`` is stable, so both are a
+    stable sort here (``torch.topk`` promises no order on ties)."""
+    b, s, _ = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    c = _capacity(s, cfg)
+    logits = x.float() @ p["router"]  # (b, s, e) float32
+    probs = torch.softmax(logits, dim=-1)
+    gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
+    gate_vals = torch.gather(probs, -1, gate_idx)
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+
+    # load-balancing aux loss (Switch-style)
+    me = probs.mean(dim=(0, 1))
+    ce = torch.nn.functional.one_hot(gate_idx, e).to(torch.float32).sum(dim=2).mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce)
+
+    flat_e = gate_idx.reshape(b, s * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)  # row-local sort
+    sorted_e = torch.gather(flat_e, 1, order)
+    sorted_w = torch.gather(gate_vals.reshape(b, s * k), 1, order)
+    one_hot = torch.nn.functional.one_hot(sorted_e, e)  # (b, sk, e)
+    seg_prefix = torch.cumsum(one_hot, dim=1) - one_hot
+    seg_pos = torch.gather(seg_prefix, 2, sorted_e[..., None])[..., 0]
+    return Routing(probs, gate_idx, order, sorted_e, sorted_w, seg_pos, seg_pos < c, aux)
+
+
+def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(t, idx[..., None], axis=1)`` for t (B, N, D)."""
+    return torch.gather(t, 1, idx[..., None].expand(*idx.shape, t.shape[-1]))
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based top-k MoE with per-batch-row dispatch.  Returns (output,
+    aux_loss).
+
+    Each batch row sorts its own S*k token-expert slots by expert; expert
+    e's slots are then the contiguous sorted range [starts_e, starts_e +
+    count_e), so its (C, D) buffer is a gather at computed positions.
+    Slots past the capacity C are dropped (their tokens pass through the
+    residual).  The expert outputs go back to their slots by a gather, are
+    weighted, un-sorted and summed over each token's k copies."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    c = _capacity(s, cfg)
+    r = route_moe(p, x, cfg)
+    sk = s * k
+    seg_pos_c = torch.where(r.keep, r.seg_pos, c - 1)
+
+    counts = torch.nn.functional.one_hot(r.sorted_e, e).sum(dim=1)  # (b, e)
+    starts = torch.cumsum(counts, dim=1) - counts
+    slot = torch.arange(e * c, device=x.device)
+    slot_e, slot_p = slot // c, slot % c
+    src = starts[:, slot_e] + slot_p[None, :]  # (b, e*c)
+    valid = slot_p[None, :] < counts[:, slot_e]
+    xin = _rows(x, r.order // k)  # (b, sk, d): each sorted slot's token
+    buf = torch.where(valid[..., None], _rows(xin, torch.clamp_max(src, sk - 1)), 0)
+    buf = buf.reshape(b, e, c, d).to(x.dtype)
+
+    h = torch.einsum("becd,edf->becf", buf, p["w1"])
+    g = torch.einsum("becd,edf->becf", buf, p["w3"])
+    out_e = torch.einsum("becf,efd->becd", torch.nn.functional.silu(h) * g, p["w2"])
+
+    vals = _rows(out_e.reshape(b, e * c, d), r.sorted_e * c + seg_pos_c)  # (b, sk, d)
+    vals = vals * torch.where(r.keep, r.sorted_w, 0.0)[..., None].to(vals.dtype)
+    vals = _rows(vals, torch.argsort(r.order, dim=1))
+    return vals.reshape(b, s, k, d).sum(dim=2).to(x.dtype), r.aux

@@ -1,5 +1,6 @@
 """Public model API: ``build(config) -> Model`` with init / forward /
-prefill / decode (the reference's ``repro.models.model``, dense family).
+prefill / decode for all six families (the reference's
+``repro.models.model``).
 
 The abstract (no-allocation) params and input specs of the reference's
 dry-run wait for ROADMAP queue 1 item 10.3.
@@ -19,6 +20,12 @@ from repro_torch.models import kvcache, transformer
 Params = Dict[str, Any]
 
 
+def context_len(cfg: ModelConfig) -> Optional[int]:
+    """Tokens of the family's context: the vlm's image tokens, the audio
+    encoder's frames; None for the families without one."""
+    return {"vlm": cfg.num_image_tokens, "audio": cfg.encoder_seq}.get(cfg.family)
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -33,60 +40,77 @@ class Model:
     def input_specs(self, shape: ShapeConfig, *, device=None) -> Dict[str, Any]:
         """Zero inputs of one cell on ``device`` (default ``"cuda"``).
 
-        train:   tokens + labels (B, S)
-        prefill: tokens (B, S)
-        decode:  tokens (B, 1) + cache + cache_len
+        train:   tokens + labels (B, S) [+ context embeddings]
+        prefill: tokens (B, S) [+ context]
+        decode:  tokens (B, 1) + cache + cache_len [+ context]
+
+        ``context`` (bfloat16): the vlm's (B, num_image_tokens, D) always,
+        the audio family's (B, encoder_seq, D) except at decode (the cache
+        holds the encoder's output).
         """
-        kvcache.require_dense(self.cfg)
+        cfg = self.cfg
         dev = resolve_device(device)
         b, s = shape.global_batch, shape.seq_len
         if shape.kind in ("train", "prefill"):
             specs = {"tokens": torch.zeros((b, s), dtype=torch.int32, device=dev)}
             if shape.kind == "train":
                 specs["labels"] = torch.zeros((b, s), dtype=torch.int32, device=dev)
-            return specs
-        return {
-            "tokens": torch.zeros((b, 1), dtype=torch.int32, device=dev),
-            "cache": kvcache.init_cache(self.cfg, b, s, device=dev),
-            "cache_len": torch.zeros((), dtype=torch.int32, device=dev),
-        }
+        else:
+            specs = {
+                "tokens": torch.zeros((b, 1), dtype=torch.int32, device=dev),
+                "cache": kvcache.init_cache(cfg, b, s, device=dev),
+                "cache_len": torch.zeros((), dtype=torch.int32, device=dev),
+            }
+        n = context_len(cfg)
+        if n is not None and not (cfg.family == "audio" and shape.kind == "decode"):
+            specs["context"] = torch.zeros((b, n, cfg.d_model), dtype=torch.bfloat16, device=dev)
+        return specs
 
     # ---- compute ----
-    def forward(self, params: Params, tokens: torch.Tensor, *, remat=True) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits, aux, _ = transformer.forward(params, self.cfg, tokens, remat=remat)
+    def forward(self, params: Params, tokens: torch.Tensor, *, context=None,
+                remat=True) -> Tuple[torch.Tensor, torch.Tensor]:
+        logits, aux, _ = transformer.forward(params, self.cfg, tokens, context=context, remat=remat)
         return logits, aux
 
-    def prefill(self, params: Params, tokens: torch.Tensor, *, max_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+    def prefill(self, params: Params, tokens: torch.Tensor, *, context=None,
+                max_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
         """Forward + decode-cache construction.
 
         ``max_len`` is the cache capacity (defaults to S + 1 so at least one
         decode step fits); sliding-window caches are capped at the window."""
-        logits, _, (kvs, _) = transformer.forward(params, self.cfg, tokens, collect_kv=True)
+        logits, _, (pieces, ctx) = transformer.forward(params, self.cfg, tokens, context=context, collect_kv=True)
         b, s = tokens.shape
-        return logits, self._assemble_cache(kvs, b, s, max_len or (s + 1))
+        return logits, self._assemble_cache(pieces, ctx, b, s, max_len or (s + 1))
 
-    def _assemble_cache(self, kvs, b: int, s: int, max_len: int) -> Params:
-        w = kvcache.attn_cache_len(self.cfg, max_len)
+    def _assemble_cache(self, pieces, ctx, b: int, s: int, max_len: int) -> Params:
+        cfg = self.cfg
+        w = kvcache.attn_cache_len(cfg, max_len)
 
-        def ring(k):  # (L, B, S, kv, hd) -> cache layout (L, B, W, kv, hd)
-            if w >= s:  # dense cache: pad the prefix K/V out to capacity
-                out = torch.zeros(k.shape[:-3] + (w,) + k.shape[-2:], dtype=k.dtype, device=k.device)
-                out[..., :s, :, :] = k
-                return out
-            # sliding window: keep the last w positions, ring-ordered
-            slots = torch.arange(s - w, s, device=k.device) % w
+        def ring(k):  # (L, B, S, kv, hd) -> cache layout (L, B, W, kv, hd), bfloat16
+            k = k.to(torch.bfloat16)
             out = torch.zeros(k.shape[:-3] + (w,) + k.shape[-2:], dtype=k.dtype, device=k.device)
-            out[..., slots, :, :] = k[..., s - w :, :, :]
+            if w >= s:  # dense cache: pad the prefix K/V out to capacity
+                out[..., :s, :, :] = k
+            else:  # sliding window: keep the last w positions, ring-ordered
+                out[..., torch.arange(s - w, s, device=k.device) % w, :, :] = k[..., s - w :, :, :]
             return out
 
-        kstack, vstack = kvs  # (L, B, S, kv, hd)
-        return {"k": ring(kstack.to(torch.bfloat16)), "v": ring(vstack.to(torch.bfloat16))}
+        if cfg.family in ("dense", "moe", "vlm", "audio"):  # the vlm's pieces are its self layers'
+            cache = {"k": ring(pieces[0]), "v": ring(pieces[1])}
+            if cfg.family == "audio":
+                cache["enc_out"] = ctx.to(torch.bfloat16)
+            return cache
+        if cfg.family == "ssm":
+            return {"h": pieces["h"], "conv": pieces["conv"]}
+        ssm_caches, shared = pieces  # hybrid
+        return {"h": ssm_caches["h"], "conv": ssm_caches["conv"], "shared_k": ring(shared[0]),
+                "shared_v": ring(shared[1])}
 
-    def decode(self, params: Params, cache: Params, tokens: torch.Tensor, cache_len) -> Tuple[torch.Tensor, Params]:
+    def decode(self, params: Params, cache: Params, tokens: torch.Tensor, cache_len, *,
+               context=None) -> Tuple[torch.Tensor, Params]:
         """One token per sequence over ``cache`` (updated in place)."""
-        return transformer.decode_step(params, self.cfg, cache, tokens, cache_len)
+        return transformer.decode_step(params, self.cfg, cache, tokens, cache_len, context=context)
 
 
 def build(cfg: ModelConfig) -> Model:
-    kvcache.require_dense(cfg)
     return Model(cfg)

@@ -5,7 +5,11 @@ The reference's update written out by hand: ``torch.optim.AdamW`` neither
 clips by the global norm nor floors the cosine at 0.1, and MAGFIT's M-step
 and the LM's train step need exactly this function.  The update is out of
 place, as the reference's: it holds the old and the new state at once
-(at olmo-1b, two copies of ~14.2 GB of float32 moments and masters).  A tree here is a dict of tensors, nested
+(at olmo-1b, two copies of ~14.2 GB of float32 moments and masters).  Each
+leaf is updated ``UPDATE_CHUNK`` elements at a time into its new tensors:
+the update is elementwise, so the bits are those of one pass, and its
+float32 temporaries stay small beside a stacked leaf (zamba2's (54, 2560,
+5120) ``w_z`` is 2.8 GB in float32).  A tree here is a dict of tensors, nested
 dicts allowed; leaves are visited in sorted key order, as ``jax.tree``
 visits a dict's, so the global norm sums them in the reference's order.
 """
@@ -84,6 +88,9 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+UPDATE_CHUNK = 1 << 24  # elements of one leaf updated at a time
+
+
 def update(
     cfg: OptConfig, grads: Any, state: OptState, params: Any
 ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
@@ -96,7 +103,7 @@ def update(
     b1c = 1.0 - torch.pow(cfg.b1, step.to(torch.float32))
     b2c = 1.0 - torch.pow(cfg.b2, step.to(torch.float32))
 
-    def upd(g, mu, nu, m):
+    def upd_chunk(g, mu, nu, m):
         g = g.to(torch.float32) * scale
         mu = cfg.b1 * mu + (1 - cfg.b1) * g
         nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
@@ -104,6 +111,18 @@ def update(
         nhat = nu / b2c
         m = m - lr * (mhat / (torch.sqrt(nhat) + cfg.eps) + cfg.weight_decay * m)
         return mu, nu, m
+
+    def upd(g, mu, nu, m):
+        if g.numel() <= UPDATE_CHUNK:
+            return upd_chunk(g, mu, nu, m)
+        out = tuple(torch.empty_like(t) for t in (mu, nu, m))
+        src = [t.reshape(-1) for t in (g, mu, nu, m)]
+        dst = [t.view(-1) for t in out]
+        for a in range(0, g.numel(), UPDATE_CHUNK):
+            part = upd_chunk(*(t[a : a + UPDATE_CHUNK] for t in src))
+            for d, v in zip(dst, part):
+                d[a : a + UPDATE_CHUNK] = v
+        return out
 
     out = _map(upd, grads, state.mu, state.nu, state.master)
     mu, nu, master = (_map(lambda o, i=i: o[i], out) for i in range(3))

@@ -39,7 +39,7 @@ def make_loss_fn(model: Model) -> Callable:
     """(params, batch) -> (loss, {"nll", "aux", "acc"})."""
 
     def loss_fn(params, batch):
-        logits, aux = model.forward(params, batch["tokens"])
+        logits, aux = model.forward(params, batch["tokens"], context=batch.get("context"))
         nll, acc = cross_entropy(logits, batch["labels"])
         loss = nll + AUX_LOSS_COEF * aux
         return loss, {"nll": nll, "aux": aux, "acc": acc}
@@ -79,10 +79,11 @@ def make_train_step(model: Model, opt_cfg: Optional[opt_lib.OptConfig] = None) -
 
 
 def make_prefill_step(model: Model, *, max_len: Optional[int] = None):
-    """(params, batch) -> (logits, cache); ``batch["tokens"]`` (B, S)."""
+    """(params, batch) -> (logits, cache); ``batch["tokens"]`` (B, S) and
+    the optional ``batch["context"]``."""
 
     def prefill_step(params, batch):
-        return model.prefill(params, batch["tokens"], max_len=max_len)
+        return model.prefill(params, batch["tokens"], context=batch.get("context"), max_len=max_len)
 
     return prefill_step
 
@@ -90,10 +91,11 @@ def make_prefill_step(model: Model, *, max_len: Optional[int] = None):
 def make_decode_step(model: Model):
     """One token in, one token out, greedy: (params, batch) -> (next_tok
     (B,) int32, logits (B, 1, V), cache); ``batch`` holds ``cache``,
-    ``tokens`` (B, 1) and ``cache_len``."""
+    ``tokens`` (B, 1), ``cache_len`` and the optional ``context``."""
 
     def decode_step(params, batch):
-        logits, cache = model.decode(params, batch["cache"], batch["tokens"], batch["cache_len"])
+        logits, cache = model.decode(params, batch["cache"], batch["tokens"], batch["cache_len"],
+                                     context=batch.get("context"))
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, logits, cache
 

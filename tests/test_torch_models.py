@@ -2,13 +2,15 @@
 ``repro.models`` / ``repro.train.steps`` / ``repro.launch.serve``, on the
 CPU at the smoke configs:
 
-- ``init_model`` bit for bit (bf16), its chunked draw equal to one draw,
-  and ``interop.lm_params_from_reference``'s bits;
+- ``init_model`` bit for bit (bf16) for all ten archs, its chunked draw
+  equal to one draw, and ``interop.lm_params_from_reference``'s bits;
 - prefill logits, the prefill cache and the decode logits after prefill,
   from the same params (carried over) and tokens, for the four dense smoke
   configs in float32 and bf16 and a sliding-window variant whose decode
   writes the ring;
-- decode parity inside the port;
+- decode parity inside the port, for all ten archs (the other families'
+  parity with the reference: ``test_torch_moe.py``, ``test_torch_ssm.py``,
+  ``test_torch_families.py``);
 - ``serve_lm --device cpu --smoke --arch qwen3-14b`` against the
   reference's greedy loop, teacher-forced with the reference's tokens;
 - the config registry and its arithmetic (``param_count``,
@@ -40,7 +42,6 @@ from repro_torch.train import steps
 from test_torch_reference import ref  # noqa: F401  (fixture)
 
 DENSE = ("olmo_1b", "qwen3_14b", "yi_9b", "deepseek_67b")
-OTHERS = tuple(a for a in configs.ARCHS if a not in DENSE)
 B, S = 2, 20  # prompt length S; the decode step writes position S
 WINDOW = 16  # the sliding-window variant: S > WINDOW, so decode writes the ring
 F32_REL = 1e-4
@@ -121,16 +122,32 @@ def _close(what, got, want, bound):
 # --- parameters -----------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", configs.ARCHS)
 def test_init_model_bit_equal_to_reference(lm, arch):
+    """Every arch's init, bit for bit, against the reference's jitted init;
+    falcon-mamba's ``A_log = log(arange(1, 9))`` is a constant that XLA
+    folds under ``jit`` through another ``log`` than the compiled one: there
+    the port holds the eager init's bits (what the reference's CLIs draw)
+    and the jitted ones lie within an ulp."""
+    import jax
+
     want = lm.get_params(arch)
     got = pmodel.build(configs.get_smoke(arch)).init(prng.PRNGKey(0), device="cpu")
     paths = [p for p, _ in _flat(want)]
     assert sorted(paths) == sorted(p for p, _ in _flat(got))
+    folded = [("blocks", "mixer", "A_log")] if arch == "falcon_mamba_7b" else []
     for path, leaf in _flat(want):
         t = _get(got, path)
         assert tuple(t.shape) == leaf.shape and str(t.dtype).split(".")[1] == leaf.dtype.name, path
-        assert np.array_equal(_tbits(t), _bits(leaf)), path
+        if path in folded:
+            eager = np.asarray(_get(lm.model.build(lm.configs.get_smoke(arch)).init(jax.random.PRNGKey(0)), path))
+            assert np.array_equal(_tbits(t), _bits(eager)), path
+            ulps = np.abs(_tbits(t).astype(np.int64) - _bits(leaf).astype(np.int64))
+            print(f"{arch} {path}: {int((ulps > 0).sum())} of {ulps.size} jitted entries differ, by at most "
+                  f"{int(ulps.max())} ulp")
+            assert ulps.max() <= 1
+        else:
+            assert np.array_equal(_tbits(t), _bits(leaf)), path
 
 
 def test_init_model_bit_equal_to_the_eager_reference(lm):
@@ -255,19 +272,26 @@ def test_prefill_and_decode_match_reference(lm, arch, dtype, window):
     assert torch.equal(nxt, torch.argmax(p_dl[:, -1], dim=-1).to(torch.int32))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", configs.ARCHS)
 def test_decode_parity_inside_the_port(arch):
     """decode(prefill(x[:S]), x[S]) == forward(x[:S+1])[-1] to the
     reference's bound (bf16: the forward's flat-head chunks against the
-    decode's factored cache path)."""
+    decode's factored cache path; the SSM families' chunked scans against
+    their recurrences), with a context for the vlm (gates at 0.5) and audio."""
     cfg = configs.get_smoke(arch)
     m = pmodel.build(cfg)
     params = m.init(prng.PRNGKey(0), device="cpu")
-    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S + 1))).long()
+    if "cross_blocks" in params:
+        params["cross_blocks"]["gate"] = torch.full_like(params["cross_blocks"]["gate"], 0.5)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1))).long()
+    n = {"vlm": cfg.num_image_tokens, "audio": cfg.encoder_seq}.get(cfg.family)
+    ctx = None if n is None else torch.from_numpy(rng.standard_normal((B, n, cfg.d_model)).astype(np.float32)).to(
+        torch.bfloat16)
     with torch.inference_mode():
-        full, _ = m.forward(params, toks)
-        _, cache = m.prefill(params, toks[:, :S])
-        dl, _ = m.decode(params, cache, toks[:, S:], S)
+        full, _ = m.forward(params, toks, context=ctx)
+        _, cache = m.prefill(params, toks[:, :S], context=ctx)
+        dl, _ = m.decode(params, cache, toks[:, S:], S, context=ctx)
     _close(f"{arch} decode parity", dl[:, 0].numpy(), full[:, -1].numpy(), BF16_ATOL)
 
 
@@ -344,15 +368,6 @@ def test_serve_cli_without_a_card_raises(monkeypatch):
         serve.main([])
 
 
-@pytest.mark.parametrize("arch", OTHERS)
-def test_other_families_raise_naming_their_item(arch):
-    cfg = configs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="item 10.1.3"):
-        pmodel.build(cfg)
-    with pytest.raises(NotImplementedError, match="item 10.1.3"):
-        kvcache.init_cache(cfg, 1, 8, device="meta")
-
-
 # --- configs and their arithmetic -------------------------------------------
 
 
@@ -367,7 +382,7 @@ def test_configs_and_param_counts_match_reference(lm, arch):
 
 
 @pytest.mark.parametrize("shape", [s.name for s in configs.SHAPES])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", configs.ARCHS)
 def test_model_flops_and_min_bytes_match_reference(lm, arch, shape):
     cfg, rcfg = configs.get(arch), lm.configs.get(arch)
     ps, rs = configs.get_shape(shape), lm.configs.get_shape(shape)

@@ -127,3 +127,22 @@ def test_update_keeps_param_dtype_and_float32_masters():
     new, state, _ = opt.update(opt.OptConfig(warmup_steps=0), {"x": torch.full((3,), 0.5)}, state, params)
     assert new["x"].dtype == torch.bfloat16 and state.master["x"].dtype == torch.float32
     assert float(state.master["x"][0]) < 1.0
+
+
+def test_update_in_chunks_is_bit_equal(monkeypatch):
+    """A leaf larger than ``UPDATE_CHUNK`` is updated in pieces (the update
+    is elementwise): the same bits as one pass, in every dtype and shape."""
+    gen = torch.Generator().manual_seed(0)
+    params = {"a": torch.randn(3, 1000, 7, generator=gen).bfloat16(), "b": {"c": torch.randn(5, 9, generator=gen)},
+              "z": torch.tensor(0.5)}
+    grads = {"a": torch.randn(3, 1000, 7, generator=gen).bfloat16(), "b": {"c": torch.randn(5, 9, generator=gen)},
+             "z": torch.tensor(0.1)}
+    state = opt.init(params)
+    cfg = opt.OptConfig(lr=1e-2, warmup_steps=1)
+    whole = opt.update(cfg, grads, state, params)
+    monkeypatch.setattr(opt, "UPDATE_CHUNK", 1000)  # 21 pieces of "a", one ending mid-row
+    pieces = opt.update(cfg, grads, state, params)
+    for a, b in ((whole[0], pieces[0]), (whole[1].mu, pieces[1].mu), (whole[1].nu, pieces[1].nu),
+                 (whole[1].master, pieces[1].master)):
+        for t1, t2 in zip(opt._leaves(a), opt._leaves(b)):
+            assert t1.dtype == t2.dtype and torch.equal(t1, t2)

@@ -131,6 +131,7 @@ import repro_torch.launch.serve
 import repro_torch.train.optimizer, repro_torch.data.pipeline
 import repro_torch.fit, repro_torch.fit.ingest, repro_torch.fit.recover
 import repro_torch.configs, repro_torch.models.model, repro_torch.train.steps, repro_torch.analysis.roofline
+import repro_torch.models.ssm
 import repro_torch.dist.fault, repro_torch.launch.train
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))

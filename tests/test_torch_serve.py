@@ -225,9 +225,9 @@ def test_cli_serves_on_the_cpu():
     assert "[serve] OK" in out.stdout and "'errors': 0" in out.stdout and "'completed': 3" in out.stdout
 
 
-# the LM mode serves the dense family; the other families name their item
+# meshes name their item in both modes (every LM family is served: tests/test_torch_families_cli.py)
 @pytest.mark.parametrize(
-    "argv, item", [(["--magm", "--mesh"], "7b"), (["--arch", "mixtral-8x22b", "--smoke", "--device", "cpu"], "item 10")]
+    "argv, item", [(["--magm", "--mesh"], "7b"), (["--arch", "mixtral-8x22b", "--smoke", "--device", "cpu", "--mesh"], "7b")]
 )
 def test_cli_unported_modes_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -113,8 +113,8 @@ class _Remat(pmodel.Model):
 
     remat: bool = True
 
-    def forward(self, params, tokens, *, remat=True):
-        return super().forward(params, tokens, remat=self.remat)
+    def forward(self, params, tokens, *, context=None, remat=True):
+        return super().forward(params, tokens, context=context, remat=self.remat)
 
 
 def _leaf_close(what, got: torch.Tensor, want, rel: float) -> float:
