@@ -185,6 +185,18 @@ forces it (FAMILY_SERVE_LAYERS), with prefill and decode ms, tokens/s and
 the decode step's byte bound, and trains it FAMILY_TRAIN_STEPS steps at
 8 x 128 where AdamW's state fits (FAMILY_TRAIN_LAYERS): step ms, MFU, the
 step's bound, peak memory, the batch-0 loss falling.
+
+    python3 chip_smoke.py --dryrun
+
+builds the kernels and checks the multi-chip dry-run (launch/dryrun.py):
+(a) the ten archs' rows at decode_32k on the 16x16 fake mesh (modelled
+at the data sheet's peaks, logged); (b) the 1-device dry-run of full
+olmo-1b at the full run's train 8 x 128 and decode batch 4 against the
+same steps on the card: the traced FLOPs equal, the predicted peak above
+the step's inputs within DRYRUN_PEAK_REL of the max_memory_allocated
+delta, and no CUDA-event step time below its row's t_ideal or modelled
+step; (c) compressed_grad_allreduce over a world-size-1 NCCL group bit
+for bit against the CPU's over gloo.  It exits non-zero when a gate fails.
 """
 
 from __future__ import annotations
@@ -3259,6 +3271,155 @@ def phase_families_full(device, archs) -> dict:
     return out
 
 
+# --- the dry-run's predictions on the card ---
+
+DRYRUN_SHAPE = "decode_32k"  # every arch's 16x16 row: decode traces fastest
+DRYRUN_CHECK = {  # olmo-1b's steps of phase_train and phase_lm, on the 1-device mesh
+    "train_8x128": ShapeConfig("train_8x128", TRAIN_SEQ, TRAIN_BATCH, "train"),
+    "decode_4x48": ShapeConfig("decode_4x48", LM_PROMPT + LM_GEN, LM_BATCH, "decode"),
+}
+DRYRUN_PEAK_REL = 0.15  # predicted peak bytes above the step's inputs vs the card's delta
+DRYRUN_REPS = 5
+
+
+def dryrun_rows() -> list:
+    """(a) Every arch's dry-run row at DRYRUN_SHAPE on the 16x16 fake mesh
+    (the traced per-device cost and the H100 roofline terms: modelled at
+    the data sheet's peaks, not measured)."""
+    from repro_torch.launch import dryrun
+
+    rows = []
+    t = time.perf_counter()
+    for arch in lm_configs.ARCHS:
+        rec = dryrun.run_cell(arch, DRYRUN_SHAPE, multi_pod=False)
+        log(f"dryrun row: {json.dumps(rec)}")
+        if rec["status"] == "failed":
+            raise AssertionError(f"dry-run {arch} x {DRYRUN_SHAPE} x 16x16 failed: {rec['error']}")
+        rows.append(rec)
+    log(f"dryrun rows seconds={time.perf_counter() - t}")
+    return rows
+
+
+def dryrun_card_check(device, model, params, shape: ShapeConfig) -> dict:
+    """(b) The 1-device dry-run of full olmo-1b at ``shape`` against the
+    same step on the card: the traced FLOPs equal, the predicted peak (its
+    bytes above the step's inputs) within DRYRUN_PEAK_REL of the card's
+    ``max_memory_allocated`` delta, and the step's CUDA-event time no less
+    than the row's t_ideal and modelled step."""
+    from repro_torch.analysis import op_cost
+    from repro_torch.launch import dryrun
+
+    pred = dryrun.lower_cell("olmo_1b", shape, mesh="host", full_depth=True)
+    batch = model.input_specs(shape, device=device)
+    if shape.kind == "train":
+        batch["tokens"] = prng.randint(prng.PRNGKey(SEED + 3), batch["tokens"].shape, 0, model.cfg.vocab_size,
+                                       device=device)
+        batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+        opt_state = opt_lib.init(params)
+        step_fn = lm_steps.make_train_step(model)
+
+        def step():
+            return step_fn(params, opt_state, batch)
+    else:
+        batch["cache_len"] = shape.seq_len - 1  # the dry-run's decode position
+        decode_fn = lm_steps.make_decode_step(model)
+
+        def step():
+            with torch.no_grad():
+                return decode_fn(params, batch)
+
+    step()  # warm: cuBLAS workspaces, first-call allocations
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, tally = op_cost.count(step, device_type="cuda")
+    torch.cuda.synchronize()
+    delta = torch.cuda.max_memory_allocated() - base
+    del out
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(DRYRUN_REPS):
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    if shape.kind == "train":
+        del opt_state
+    measured_s = statistics.median(times)
+    out = {
+        "shape": shape.name, "pred_gflops": pred["hlo_gflops_per_chip"], "card_gflops": tally.cost.flops / 1e9,
+        "pred_temp_peak_bytes": pred["temp_peak_bytes_per_chip"], "card_peak_delta_bytes": delta,
+        "peak_rel_err": (pred["temp_peak_bytes_per_chip"] - delta) / delta,
+        "pred_gbytes": pred["hlo_gbytes_per_chip"], "card_traced_gbytes": tally.cost.bytes / 1e9,
+        "t_ideal_s": pred["t_ideal_s"], "t_step_s": pred["t_step_s"], "bottleneck": pred["bottleneck"],
+        "measured_step_s": measured_s, "step_s_all": times, "measured_over_modelled": measured_s / pred["t_step_s"],
+        "trace_s": pred["trace_s"],
+    }
+    log(f"dryrun card check olmo_1b x {shape.name}: {json.dumps(out)}")
+    if out["card_gflops"] != out["pred_gflops"]:
+        raise AssertionError(f"{shape.name}: card FLOPs {tally.cost.flops} != dry-run {pred['hlo_gflops_per_chip']} G")
+    if abs(out["peak_rel_err"]) > DRYRUN_PEAK_REL:
+        raise AssertionError(f"{shape.name}: predicted peak {pred['temp_peak_bytes_per_chip']} vs card {delta}")
+    if measured_s < max(pred["t_ideal_s"], pred["t_step_s"]):
+        raise AssertionError(f"{shape.name}: measured {measured_s} s beats the bound {pred['t_step_s']} s")
+    return out
+
+
+def dryrun_collective(device) -> dict:
+    """(c) ``compressed_grad_allreduce`` on card leaves over a world-size-1
+    NCCL group against the CPU port's over gloo, bit for bit.  One card can
+    hold the collective only in this degenerate form (each all-gather moves
+    the rank's own payload); the payload, scale and mean arithmetic are the
+    same code as on a real pod axis."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import collectives
+
+    g = {"blocks": {"w1": prng.normal(prng.PRNGKey(11), (64, 4096)) * 0.02,
+                    "norm": prng.normal(prng.PRNGKey(12), (4096,))},
+         "embed": (prng.normal(prng.PRNGKey(13), (50304, 64)) * 3).to(torch.bfloat16),
+         "gate": torch.zeros((3,))}
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        want = collectives.compressed_grad_allreduce(g, prng.PRNGKey(3), init_device_mesh("cpu", (1,), mesh_dim_names=("pod",)))
+        got = collectives.compressed_grad_allreduce(lm_transformer.tree_map(lambda t: t.to(device), g), prng.PRNGKey(3),
+                                                    init_device_mesh("cuda", (1,), mesh_dim_names=("pod",)))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    leaves = 0
+    for (a, b) in zip(lm_transformer.tree_leaves(want), lm_transformer.tree_leaves(got)):
+        if a.dtype != b.dtype or not torch.equal(a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+                                                 b.cpu().view(torch.int16 if b.element_size() == 2 else torch.int32)):
+            raise AssertionError("compressed_grad_allreduce: the card's mean differs from the CPU's")
+        leaves += 1
+    out = {"leaves": leaves, "elements": sum(t.numel() for t in lm_transformer.tree_leaves(g)), "bit_equal": True}
+    log(f"dryrun collective (world size 1, nccl vs gloo): {json.dumps(out)}")
+    return out
+
+
+def phase_dryrun(device) -> dict:
+    """``--dryrun``: (a) the rows, (b) the card checks, (c) the collective."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t = time.perf_counter()
+    try:
+        rows = dryrun_rows()
+        model = lm_model.build(lm_configs.get("olmo_1b"))
+        params = model.init(prng.PRNGKey(SEED), device=device)
+        checks = {k: dryrun_card_check(device, model, params, s) for k, s in DRYRUN_CHECK.items()}
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        mesh_lib.release()
+    coll = dryrun_collective(device)
+    log(f"dryrun seconds={time.perf_counter() - t}")
+    return {"rows": rows, "checks": checks, "collective": coll}
+
+
 def main(argv) -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3322,6 +3483,14 @@ def main(argv) -> int:
         log(json.dumps({"families": {a: {"serve_layers": r["serve_layers"], **{k: r["serve"][k] for k in keys_s},
                                          **({"train_layers": r["train_layers"], **{k: r["train"][k] for k in keys_t}}
                                             if "train" in r else {})} for a, r in fams.items()}}))
+        return 0
+    if argv == ["--dryrun"]:
+        dr = phase_dryrun(device)
+        log(nvidia_smi())
+        log(json.dumps({"dryrun": {"rows": [{k: r.get(k) for k in ("arch", "shape", "mesh", "status", "bottleneck",
+                                                                     "t_step_s", "t_ideal_s", "peak_bytes_per_chip")}
+                                            for r in dr["rows"]],
+                                   "checks": dr["checks"], "collective": dr["collective"]}}))
         return 0
     if argv == ["--split"]:
         split = phase_split_and_batches(device, MAGMSampler(paper_config(FULL_LOG2_N, device)))

@@ -9,15 +9,24 @@ operations over the peak rate for their type.
   ``repro.analysis.roofline`` arithmetic on the config and the cache
   shapes, with no allocation (the cache is laid out on the ``meta``
   device); a train step's bound (:func:`train_step_bound_ms`).
+- The dry-run's step terms (:class:`Roofline`, :func:`build`,
+  :func:`save_rows`), with the reference's fields and ``row()`` keys:
 
-The reference's file holds TPU v5e constants and parses XLA's HLO text
-(``collective_bytes``, ``Roofline``, ``build``): those parts belong to the
-dry-run (ROADMAP queue 1 item 10.3).
+      compute term    = FLOPs per chip / BF16_FLOPS_PER_S
+      memory term     = bytes per chip / HBM_BYTES_PER_S
+      collective term = collective bytes per chip / LINK_BYTES_PER_S
+
+  ``hlo_*`` in the row names the op-traced count (``analysis.op_cost``,
+  which reads aten ops, not HLO).  The reference's TPU v5e constants and
+  its HLO-text parsing have no counterpart here: :func:`collective_bytes`
+  takes the traced cost's per-kind dict.
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING
+import dataclasses
+import json
+from typing import TYPE_CHECKING, Dict, Optional
 
 if TYPE_CHECKING:
     from repro_torch.core import quilt
@@ -32,6 +41,12 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 INT32_OPS_PER_S = 128 * 132 * 1.98e9
 FP32_FLOPS_PER_S = 67e12  # outside the tensor cores, an FMA counted as two
+# One link rate for every mesh axis: NVLink 4 at 450 GB/s a direction (the
+# data sheet's 900 GB/s is both directions), the counterpart of the
+# reference's one ICI rate.  An axis that spans nodes would run at the
+# InfiniBand rate instead; the one-rate model does not split it out, as
+# the reference's one ICI rate does not split its inter-pod links.
+LINK_BYTES_PER_S = 450e9
 # a Philox4x32-10 call: 10 rounds of 4 multiplies and 4 XORs; the round keys
 # depend on the seed alone, so the kernel computes them outside the calls
 PHILOX_OPS = 10 * 8
@@ -160,3 +175,117 @@ def train_step_bound_ms(cfg, batch: int, seq: int) -> tuple:
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     t_bytes = OPT_BYTES_PER_PARAM * cfg.param_count() / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# --- the dry-run's step terms ---
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+
+
+def collective_bytes(coll: Dict[str, float]) -> Dict[str, int]:
+    """Bytes per collective kind, every one of the reference's five kinds
+    present, from the traced cost's per-kind dict (``op_cost.Cost.coll``)."""
+    unknown = set(coll) - set(KINDS)
+    if unknown:
+        raise ValueError(f"unknown collective kinds {sorted(unknown)}")
+    return {k: int(coll.get(k, 0)) for k in KINDS}
+
+
+@dataclasses.dataclass
+class Roofline:
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    hlo_gflops: float  # per-chip GFLOPs (op-traced, local shards)
+    hlo_gbytes: float  # per-chip GB accessed
+    coll_gbytes: float  # per-chip GB through collectives
+    coll_breakdown: Dict[str, int]
+    model_gflops: float  # 6*N*D (or 6*N_active*D) useful flops per chip
+    min_gbytes: float  # unavoidable per-chip HBM traffic (params + cache)
+    peak_bytes_per_chip: Optional[float]  # live bytes' high-water mark
+
+    @property
+    def t_compute(self) -> float:
+        return self.hlo_gflops * 1e9 / BF16_FLOPS_PER_S
+
+    @property
+    def t_memory(self) -> float:
+        return self.hlo_gbytes * 1e9 / HBM_BYTES_PER_S
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll_gbytes * 1e9 / LINK_BYTES_PER_S
+
+    @property
+    def t_step(self) -> float:
+        """The modelled step: the largest term (perfect overlap)."""
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory, "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def useful_flop_ratio(self) -> float:
+        return self.model_gflops / max(self.hlo_gflops, 1e-9)
+
+    @property
+    def t_ideal(self) -> float:
+        """Best achievable step time: useful flops at the bf16 peak or the
+        unavoidable HBM stream (weights + cache), whichever is larger."""
+        return max(self.model_gflops * 1e9 / BF16_FLOPS_PER_S, self.min_gbytes * 1e9 / HBM_BYTES_PER_S)
+
+    @property
+    def roofline_fraction(self) -> float:
+        """t_ideal / the modelled step (a lower bound on the achievable
+        efficiency, since the step assumes perfect overlap)."""
+        return self.t_ideal / max(self.t_step, 1e-12)
+
+    def row(self) -> Dict:
+        return {
+            "arch": self.arch,
+            "shape": self.shape,
+            "mesh": self.mesh,
+            "chips": self.chips,
+            "t_compute_s": self.t_compute,
+            "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective,
+            "bottleneck": self.bottleneck,
+            "hlo_gflops_per_chip": self.hlo_gflops,
+            "hlo_gbytes_per_chip": self.hlo_gbytes,
+            "coll_gbytes_per_chip": self.coll_gbytes,
+            "coll_breakdown": self.coll_breakdown,
+            "model_gflops_per_chip": self.model_gflops,
+            "min_gbytes_per_chip": self.min_gbytes,
+            "t_ideal_s": self.t_ideal,
+            "useful_flop_ratio": self.useful_flop_ratio,
+            "roofline_fraction": self.roofline_fraction,
+            "peak_bytes_per_chip": self.peak_bytes_per_chip,
+        }
+
+
+def build(arch: str, shape, cfg, mesh_name: str, chips: int, cost: Dict, coll: Dict[str, float],
+          mem_bytes: Optional[float]) -> Roofline:
+    """One row from a traced cost: ``cost`` holds ``"flops"`` and ``"bytes
+    accessed"`` per chip, ``coll`` the collective bytes per kind."""
+    coll = collective_bytes(coll)
+    return Roofline(
+        arch=arch,
+        shape=shape.name,
+        mesh=mesh_name,
+        chips=chips,
+        hlo_gflops=float(cost.get("flops", 0.0)) / 1e9,
+        hlo_gbytes=float(cost.get("bytes accessed", 0.0)) / 1e9,
+        coll_gbytes=sum(coll.values()) / 1e9,
+        coll_breakdown=coll,
+        model_gflops=model_flops(cfg, shape, chips=chips),
+        min_gbytes=model_min_bytes(cfg, shape, chips=chips),
+        peak_bytes_per_chip=mem_bytes,
+    )
+
+
+def save_rows(path: str, rows) -> None:
+    with open(path, "w") as f:
+        json.dump(rows, f, indent=1)

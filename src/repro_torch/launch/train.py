@@ -23,7 +23,7 @@ from repro_torch import configs
 from repro_torch.core import prng
 from repro_torch.core.device import resolve_device
 from repro_torch.data import pipeline as data_pipeline
-from repro_torch.dist import fault
+from repro_torch.dist import fault, hints, sharding
 from repro_torch.models.model import build as build_model
 from repro_torch.models.transformer import tree_leaves
 from repro_torch.train import optimizer as opt_lib
@@ -73,8 +73,11 @@ def train(args) -> TrainRun:
     opt_state = opt_lib.init(params)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"[model] {cfg.name}: {n_params/1e6:.1f}M params")
-    # the reference places params by sharding.param_shardings here; on one
-    # device that is the identity (the sharding rules: ROADMAP item 10.3)
+    # the reference's placement by the sharding rules: on the 1-device host
+    # mesh every spec is replicated, so the params stay where they are
+    specs = sharding.param_specs(cfg, params, hints.MeshShape(("data",), (1,)))
+    if any(any(e is not None for e in s) for s in tree_leaves(specs)):
+        raise AssertionError("the host mesh shards a param")
 
     step_fn = steps_lib.make_train_step(model, opt_cfg)
     sup = fault.TrainSupervisor(step_fn, source.batch, ckpt_dir, ckpt_every=args.ckpt_every)

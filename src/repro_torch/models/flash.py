@@ -12,7 +12,8 @@ Per query chunk, a running max ``m``, normaliser ``l`` and accumulator
 and the chunk's output is ``acc / max(l, 1e-30)``.  GQA: k/v carry KV
 heads, broadcast to H heads one chunk at a time, so a full-length repeated
 K/V never exists.  Masks (causal, sliding window, ``q_offset``) come from
-absolute positions.  The score and PV products take the reference's
+absolute positions.  The accumulators are made ``*_like`` a block or an
+input, so on DTensors they take that tensor's sharding.  The score and PV products take the reference's
 ``preferred_element_type=float32``: both operands are widened to float32
 (exact for bf16) and summed in float32 (float64 inputs stay float64).
 
@@ -108,9 +109,7 @@ def _flash_fwd_impl(q, k, v, causal, window, q_offset, q_chunk, kv_chunk) -> Tup
     for qi in range(nq):
         qblk = q[:, qi * qc : (qi + 1) * qc]
         qpos = q_offset + qi * qc + torch.arange(qc, device=dev)
-        m = torch.full((b, h, qc), NEG_INF, dtype=acc_t, device=dev)
-        l = torch.zeros((b, h, qc), dtype=acc_t, device=dev)
-        acc = torch.zeros((b, h, qc, hd), dtype=acc_t, device=dev)
+        m = l = acc = None  # made from the first block, so they take its layout
         for ki in range(nk):
             kblk = k[:, ki * kc : (ki + 1) * kc]
             vblk = v[:, ki * kc : (ki + 1) * kc]
@@ -120,12 +119,14 @@ def _flash_fwd_impl(q, k, v, causal, window, q_offset, q_chunk, kv_chunk) -> Tup
             kpos = ki * kc + torch.arange(kc, device=dev)
             s = _f32_einsum("bqhd,bkhd->bhqk", qblk, kblk) * scale
             s = torch.where(_mask(qpos, kpos, causal, window)[None, None], s, NEG_INF)
+            if m is None:
+                m, l = torch.full_like(s[..., 0], NEG_INF), torch.zeros_like(s[..., 0])
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
             pv = _f32_einsum("bhqk,bkhd->bhqd", p.to(vblk.dtype), vblk)
-            acc = acc * corr[..., None] + pv
+            acc = (torch.zeros_like(pv) if acc is None else acc) * corr[..., None] + pv
             m = m_new
         l_safe = torch.clamp_min(l, 1e-30)
         outs.append((acc / l_safe[..., None]).to(q.dtype))  # (b, h, qc, hd)
@@ -147,9 +148,10 @@ def _flash_bwd_impl(q, k, v, out, lse, dout, causal, window, q_offset, q_chunk, 
     dev, acc_t = q.device, _acc_dtype(q.dtype)
 
     delta = _f32_einsum("bqhd,bqhd->bhq", dout, out)  # (b, h, sq)
-    dq = torch.zeros((b, sq, h, hd), dtype=acc_t, device=dev)
-    dk = torch.empty((b, sk, kvh, hd), dtype=acc_t, device=dev)
-    dv = torch.empty((b, sk, kvh, hd), dtype=acc_t, device=dev)
+    # per-chunk accumulators, joined at the end (no writes into slices, so
+    # DTensors keep their sharding)
+    dq = [torch.zeros_like(q[:, qi * qc : (qi + 1) * qc], dtype=acc_t) for qi in range(nq)]
+    dk, dv = [], []
     for ki in range(nk):
         ks = slice(ki * kc, (ki + 1) * kc)
         kblk, vblk = k[:, ks], v[:, ks]
@@ -157,8 +159,8 @@ def _flash_bwd_impl(q, k, v, out, lse, dout, causal, window, q_offset, q_chunk, 
             kblk = kblk.repeat_interleave(rep, dim=2)
             vblk = vblk.repeat_interleave(rep, dim=2)
         kpos = ki * kc + torch.arange(kc, device=dev)
-        dk_blk = torch.zeros((b, kc, kvh, hd), dtype=acc_t, device=dev)
-        dv_blk = torch.zeros((b, kc, kvh, hd), dtype=acc_t, device=dev)
+        dk_blk = torch.zeros_like(k[:, ks], dtype=acc_t)
+        dv_blk = torch.zeros_like(v[:, ks], dtype=acc_t)
         for qi in range(nq):
             qs = slice(qi * qc, (qi + 1) * qc)
             qblk, doblk = q[:, qs], dout[:, qs]
@@ -176,10 +178,11 @@ def _flash_bwd_impl(q, k, v, out, lse, dout, causal, window, q_offset, q_chunk, 
                 dv_b = dv_b.reshape(b, kc, kvh, rep, hd).sum(3)
             dk_blk = dk_blk + dk_b
             dv_blk = dv_blk + dv_b
-            dq[:, qs] += dq_b
-        dk[:, ks] = dk_blk
-        dv[:, ks] = dv_blk
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+            dq[qi] = dq[qi] + dq_b
+        dk.append(dk_blk)
+        dv.append(dv_blk)
+    return (torch.cat(dq, dim=1).to(q.dtype), torch.cat(dk, dim=1).to(k.dtype),
+            torch.cat(dv, dim=1).to(v.dtype))
 
 
 def ref_attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0) -> torch.Tensor:

@@ -13,9 +13,12 @@ Conventions (the reference's):
   threefry key (``core.prng``), times the scale as a float32 scalar,
   rounded to the model dtype; so the bits are the reference's.
 
-The reference's sharding hints (``dist.hints.shard``, ``current_mesh``)
-are the identity without a mesh and are left out (meshes: ROADMAP queue 1
-item 7b), so ``expert_sharding`` ("ep" / "tp") changes nothing here.
+The reference's sharding hints sit where the reference puts them
+(``dist.hints.shard``, ``current_mesh``): the identity on plain tensors, so
+they change no bit there; on DTensors under an ambient mesh they place the
+attention's query, the MLP's hidden layer and the MoE's expert buffers
+(``expert_sharding`` "ep" / "tp"), and with a ``model`` axis that does not
+divide the heads the attention runs sequence-parallel (one query chunk).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
+from repro_torch.dist.hints import current_mesh, is_dtensor, local_map, mesh_axes, shard, spec_placements
 from repro_torch.models.flash import NEG_INF, flash_attention
 
 Params = Dict[str, Any]
@@ -58,6 +62,8 @@ def draw_normal(key: torch.Tensor, shape, scale: float, dtype: torch.dtype, devi
     which gives the bits of one whole draw."""
     shape = tuple(int(s) for s in shape)
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:  # shapes and dtypes only
+        return out
     flat = out.view(-1)
     s = torch.tensor(scale, dtype=torch.float32, device=device)
     for a in range(0, flat.numel(), INIT_CHUNK):
@@ -162,10 +168,79 @@ def chunked_attention(
 ) -> torch.Tensor:
     """Online-softmax attention (``flash_attention``) with chunk sizes the
     largest divisors of the lengths within ``q_chunk`` / ``kv_chunk``; never
-    materialises the (Sq, Sk) scores."""
-    qc = _largest_divisor(q.shape[1], q_chunk)
+    materialises the (Sq, Sk) scores.
+
+    Sequence-parallel fallback (the reference's): when the ambient mesh's
+    ``model`` axis does not divide the heads (qwen3: 40 on 16, whisper: 8
+    on 16) but divides the query length, the query positions shard over it
+    and run as one chunk; otherwise the heads shard."""
+    sq, h = q.shape[1], q.shape[2]
+    mesh = current_mesh()
+    tp = mesh_axes(mesh).get("model", 1) if mesh is not None else 1
+    seq_parallel = tp > 1 and h % tp != 0 and sq % tp == 0
+    qc = sq if seq_parallel else _largest_divisor(sq, q_chunk)
     kc = _largest_divisor(k.shape[1], kv_chunk)
-    return flash_attention(q, k, v, causal, window, q_offset, qc, kc).to(q.dtype)
+    if seq_parallel:
+        qs = shard(q, "batch", "tp", None, None)
+    else:
+        qs = shard(q, "batch", None, "tp", None)
+    if not is_dtensor(qs):
+        return flash_attention(qs, k, v, causal, window, q_offset, qc, kc).to(q.dtype)
+    return _flash_local(qs, k, v, causal, window, q_offset, qc, kc, seq_parallel).to(q.dtype)
+
+
+def _flash_local(q, k, v, causal, window, q_offset, qc, kc, seq_parallel):
+    """``flash_attention`` on DTensors, each rank on its own shards: its
+    batch rows and heads, or (``seq_parallel``) its batch rows and query
+    positions against the whole K/V, the causal mask offset by its first
+    position.  A rank's query heads read their own K/V heads (a GQA group
+    is picked out of replicated K/V where the ``model`` axis does not
+    divide the KV heads); K/V that feed different work on each rank take
+    ``Partial`` gradients."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    dm = q.device_mesh
+    mi = dm.mesh_dim_names.index("model") if "model" in dm.mesh_dim_names else None
+    r = dm.get_local_rank("model") if mi is not None else 0
+    h, kvh = q.shape[2], k.shape[2]
+    pick = None
+    if seq_parallel:
+        qpl = spec_placements(("batch", "tp"), q)
+        kpl = spec_placements(("batch",), k)
+        qcl = qc // dm.size(mi)
+        q_offset = q_offset + r * qcl
+    else:
+        qpl = spec_placements(("batch", None, "tp"), q)
+        kpl = spec_placements(("batch", None, "tp"), k)
+        qcl = qc
+        if mi is not None and qpl[mi] != Replicate() and kpl[mi] == Replicate():
+            hl = h // dm.size(mi)  # this rank's query heads read these KV heads
+            pick = torch.div(r * hl + torch.arange(hl, device=k.device), h // kvh, rounding_mode="floor")
+    gpl = kpl
+    if mi is not None and kpl[mi] == Replicate() and qpl[mi] != Replicate():
+        gpl = tuple(Partial() if i == mi else p for i, p in enumerate(kpl))
+
+    def local(q, k, v):
+        if pick is not None:
+            k, v = k[:, :, pick], v[:, :, pick]
+        return flash_attention(q, k, v, causal, window, q_offset, qcl, kc)
+
+    return local_map(local, (q, k, v), (qpl, kpl, kpl), qpl, (None, gpl, gpl))
+
+
+def _tp_splits(n: int) -> bool:
+    """Whether the ambient mesh's ``model`` axis (if any) divides ``n``
+    heads: a view cannot split a head across devices."""
+    mesh = current_mesh()
+    return mesh is None or n % mesh_axes(mesh).get("model", 1) == 0
+
+
+def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd), a DTensor's TP-sharded feature dim
+    gathered first where the heads do not split over ``model``."""
+    if not _tp_splits(n):
+        t = shard(t, "batch")
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
 
 
 def _write(cache: torch.Tensor, new: torch.Tensor, idx: int) -> torch.Tensor:
@@ -199,9 +274,14 @@ def apply_attention(
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     src = x if kv_source is None else kv_source
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    kproj = matmul(src, p["wk"]).reshape(b, src.shape[1], kv, hd)
-    vproj = matmul(src, p["wv"]).reshape(b, src.shape[1], kv, hd)
+    # the weights as the products use them: FSDP-gathered, TP-sharded
+    # (identities on plain tensors)
+    wq, wk, wv = (shard(p[n], None, "tp") for n in ("wq", "wk", "wv"))
+    # row-parallel only where the heads split (its gradient is viewed per head)
+    wo = shard(p["wo"], "tp" if _tp_splits(h) else None, None)
+    q = _heads(x @ wq, h, hd)
+    kproj = _heads(matmul(src, wk), kv, hd)
+    vproj = _heads(matmul(src, wv), kv, hd)
 
     if "q_norm" in p:
         q = rms_head_norm(p["q_norm"], q)
@@ -225,17 +305,23 @@ def apply_attention(
         _write(ck, kproj, idx)
         _write(cv, vproj, idx)
         out = _decode_attention(q, ck, cv, valid_len=valid)
-        return out @ p["wo"], (ck, cv)
+        return shard(out @ wo, "batch"), (ck, cv)
 
     out = chunked_attention(q, kproj, vproj, causal=causal and not is_cross,
                             window=0 if is_cross else cfg.sliding_window)
-    return out.reshape(b, s, h * hd) @ p["wo"], (kproj, vproj)
+    # the row-parallel product reduced where it is made (in its dtype)
+    return shard(out.reshape(b, s, h * hd) @ wo, "batch"), (kproj, vproj)
 
 
 def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, valid_len: int) -> torch.Tensor:
     """Small-Sq attention over a (possibly partly filled) cache, in the
     reference's factored GQA form (no KV-head repeat): q heads grouped as
     (KV, H/KV); cache positions >= ``valid_len`` are masked."""
+    if is_dtensor(q):  # each rank on its batch rows and KV groups
+        names = ("batch", None, "tp") if not k.shape[2] % mesh_axes(current_mesh()).get("model", 1) else ("batch",)
+        qpl, kpl = spec_placements(names, q), spec_placements(names, k)
+        return local_map(lambda q, k, v: _decode_attention(q, k, v, valid_len=valid_len), (q, k, v),
+                         (qpl, kpl, kpl), qpl)
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     rep = h // kvh
@@ -266,8 +352,10 @@ def init_mlp(key: torch.Tensor, cfg: ModelConfig, d_ff: Optional[int] = None, *,
 
 
 def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    h = torch.nn.functional.silu(x @ p["w1"]) * (x @ p["w3"])
-    return h @ p["w2"]
+    w1, w3, w2 = shard(p["w1"], None, "tp"), shard(p["w3"], None, "tp"), shard(p["w2"], "tp", None)
+    h = torch.nn.functional.silu(x @ w1) * (x @ w3)
+    h = shard(h, "batch", None, "tp")  # (B, S, F): keep TP on d_ff
+    return shard(h @ w2, "batch")
 
 
 def init_moe(key: torch.Tensor, cfg: ModelConfig, *, device=None) -> Params:
@@ -347,6 +435,39 @@ def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(t, 1, idx[..., None].expand(*idx.shape, t.shape[-1]))
 
 
+def _experts(buf, w1, w3, w2):
+    """The experts' SwiGLU on their (B, E, C, D) buffers."""
+    h = torch.einsum("becd,edf->becf", buf, w1)
+    g = torch.einsum("becd,edf->becf", buf, w3)
+    return torch.einsum("becf,efd->becd", torch.nn.functional.silu(h) * g, w2)
+
+
+def _experts_local(buf, w1, w3, w2, ep: bool):
+    """:func:`_experts` on DTensors, each rank on its shards: its batch rows
+    and, with ``ep``, its experts (the weights' FSDP dim gathered), else
+    its slice of every expert's FFN width (the output a partial sum over
+    ``model``).  Weights take partial gradients over the batch axes."""
+    from torch.distributed.tensor import Partial
+
+    if ep:
+        bpl = spec_placements(("batch", "tp"), buf)
+        w13, w2pl = spec_placements(("tp",), w1), spec_placements(("tp",), w2)
+        opl, bgrad = bpl, bpl
+    else:
+        bpl = spec_placements(("batch",), buf)
+        w13, w2pl = spec_placements((None, None, "tp"), w1), spec_placements((None, "tp"), w2)
+        split = tuple(i for i, p in enumerate(w13) if p.is_shard())  # the width's mesh dims
+        opl = tuple(Partial() if i in split else p for i, p in enumerate(bpl))
+        bgrad = opl
+    batch_dims = {i for i, p in enumerate(bpl) if p.is_shard() and p.dim == 0}
+
+    def wgrad(pl):
+        return tuple(Partial() if i in batch_dims else p for i, p in enumerate(pl))
+
+    return local_map(lambda *a: _experts(*a).contiguous(), (buf, w1, w3, w2), (bpl, w13, w13, w2pl), opl,
+                     (bgrad, wgrad(w13), wgrad(w13), wgrad(w2pl)))
+
+
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based top-k MoE with per-batch-row dispatch.  Returns (output,
     aux_loss).
@@ -374,9 +495,18 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tenso
     buf = torch.where(valid[..., None], _rows(xin, torch.clamp_max(src, sk - 1)), 0)
     buf = buf.reshape(b, e, c, d).to(x.dtype)
 
-    h = torch.einsum("becd,edf->becf", buf, p["w1"])
-    g = torch.einsum("becd,edf->becf", buf, p["w3"])
-    out_e = torch.einsum("becf,efd->becd", torch.nn.functional.silu(h) * g, p["w2"])
+    if cfg.expert_sharding == "ep":
+        # the expert axis shards over model; batch-sharded tokens into the
+        # E-sharded buffer is the all-to-all
+        buf = shard(buf, "batch", "tp", None, None)
+    else:
+        # expert-TP: buffer replicated over model, the expert FFN width
+        # sharded; the combine all-reduces out_e
+        buf = shard(buf, "batch", None, None, None)
+    if is_dtensor(buf):
+        out_e = _experts_local(buf, p["w1"], p["w3"], p["w2"], cfg.expert_sharding == "ep")
+    else:
+        out_e = _experts(buf, p["w1"], p["w3"], p["w2"])
 
     vals = _rows(out_e.reshape(b, e * c, d), r.sorted_e * c + seg_pos_c)  # (b, sk, d)
     vals = vals * torch.where(r.keep, r.sorted_w, 0.0)[..., None].to(vals.dtype)

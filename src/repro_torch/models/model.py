@@ -2,8 +2,9 @@
 prefill / decode for all six families (the reference's
 ``repro.models.model``).
 
-The abstract (no-allocation) params and input specs of the reference's
-dry-run wait for ROADMAP queue 1 item 10.3.
+``abstract_params`` and ``input_specs(shape, abstract=True)`` give the
+reference's shapes and dtypes as ``meta`` tensors (no allocation), the
+counterpart of its ``jax.eval_shape`` trees, for the dry-run.
 """
 
 from __future__ import annotations
@@ -36,9 +37,15 @@ class Model:
         ``"cuda"``; raises without a card)."""
         return transformer.init_model(key, self.cfg, device=device)
 
+    def abstract_params(self) -> Params:
+        """The params' shapes and dtypes as ``meta`` tensors: no memory, no
+        draws."""
+        return transformer.init_model(None, self.cfg, device="meta")
+
     # ---- inputs ----
-    def input_specs(self, shape: ShapeConfig, *, device=None) -> Dict[str, Any]:
-        """Zero inputs of one cell on ``device`` (default ``"cuda"``).
+    def input_specs(self, shape: ShapeConfig, *, device=None, abstract: bool = False) -> Dict[str, Any]:
+        """Zero inputs of one cell on ``device`` (default ``"cuda"``), or
+        with ``abstract`` their shapes and dtypes as ``meta`` tensors.
 
         train:   tokens + labels (B, S) [+ context embeddings]
         prefill: tokens (B, S) [+ context]
@@ -49,7 +56,7 @@ class Model:
         holds the encoder's output).
         """
         cfg = self.cfg
-        dev = resolve_device(device)
+        dev = torch.device("meta") if abstract else resolve_device(device)
         b, s = shape.global_batch, shape.seq_len
         if shape.kind in ("train", "prefill"):
             specs = {"tokens": torch.zeros((b, s), dtype=torch.int32, device=dev)}
@@ -87,13 +94,13 @@ class Model:
         w = kvcache.attn_cache_len(cfg, max_len)
 
         def ring(k):  # (L, B, S, kv, hd) -> cache layout (L, B, W, kv, hd), bfloat16
+            # made from k's own pieces, so a DTensor stack keeps its sharding
             k = k.to(torch.bfloat16)
-            out = torch.zeros(k.shape[:-3] + (w,) + k.shape[-2:], dtype=k.dtype, device=k.device)
             if w >= s:  # dense cache: pad the prefix K/V out to capacity
-                out[..., :s, :, :] = k
-            else:  # sliding window: keep the last w positions, ring-ordered
-                out[..., torch.arange(s - w, s, device=k.device) % w, :, :] = k[..., s - w :, :, :]
-            return out
+                pad = torch.zeros_like(k[..., :1, :, :]).expand(*k.shape[:-3], w - s, *k.shape[-2:])
+                return torch.cat([k, pad], dim=-3)
+            # sliding window: the last w positions, ring-ordered (position p in slot p % w)
+            return torch.roll(k[..., s - w :, :, :], (s - w) % w, dims=-3)
 
         if cfg.family in ("dense", "moe", "vlm", "audio"):  # the vlm's pieces are its self layers'
             cache = {"k": ring(pieces[0]), "v": ring(pieces[1])}

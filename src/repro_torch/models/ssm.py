@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import f32math, prng
+from repro_torch.dist.hints import is_dtensor, local_map, shard, spec_placements
 from repro_torch.models.layers import _dtype, draw_normal, matmul
 
 Params = Dict[str, Any]
@@ -56,8 +57,9 @@ def _conv_step(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
 
 
 def _chunks(t: torch.Tensor, nchunk: int, lc: int):
-    """The ``nchunk`` chunks of length ``lc`` along t's axis 1."""
-    return t.reshape(t.shape[0], nchunk, lc, *t.shape[2:]).unbind(1)
+    """The ``nchunk`` chunks of length ``lc`` along t's axis 1 (views; a
+    DTensor sharded along the sequence is gathered first)."""
+    return t.split(lc, dim=1)
 
 
 def _chunk_len(cfg: ModelConfig, s_len: int) -> int:
@@ -68,10 +70,12 @@ def _chunk_len(cfg: ModelConfig, s_len: int) -> int:
 
 
 def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
-    out = even.new_empty((even.shape[0], even.shape[1] + odd.shape[1], *even.shape[2:]))
-    out[:, 0::2] = even
-    out[:, 1::2] = odd
-    return out
+    """even[0], odd[0], even[1], ... along axis 1 (``even`` may hold one
+    more); stacked, not written into a new buffer, so a DTensor keeps its
+    sharding."""
+    n = odd.shape[1]
+    out = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return out if even.shape[1] == n else torch.cat([out, even[:, n:]], dim=1)
 
 
 def associative_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,16 +139,74 @@ def apply_mamba1(p: Params, x: torch.Tensor, cfg: ModelConfig, *, return_cache: 
     lc = _chunk_len(cfg, s_len)
     nchunk = s_len // lc
 
-    xin_raw = x @ p["in_x"]
-    z = x @ p["in_z"]
+    w = _mamba1_weights(p)
+    xin_raw = shard(x @ w["in_x"], "batch", None, "tp")
+    z = x @ w["in_z"]
     xin = F.silu(_causal_conv(xin_raw, p["conv_w"], p["conv_b"]))
-    dt = softplus(matmul(xin @ p["xp_dt"], p["dt_proj"]) + p["dt_bias"])  # (b, s, di) float32
-    bmat = xin @ p["xp_B"]
-    cmat = xin @ p["xp_C"]
+    dt = softplus(matmul(xin @ w["xp_dt"], w["dt_proj"]) + p["dt_bias"])  # (b, s, di) float32
+    dt = shard(dt, "batch", None, "tp")
+    # contracted over the TP-sharded d_inner: reduced here (the in-place
+    # state add below needs its operands placed alike)
+    bmat = shard(xin @ w["xp_B"], "batch", None, None)
+    cmat = shard(xin @ w["xp_C"], "batch", None, None)
     A = -torch.exp(p["A_log"])  # (di, ns)
 
-    # the (b, lc, di, ns) discretised tensors exist one chunk at a time
-    h = torch.zeros((b, di, ns), dtype=torch.float32, device=x.device)
+    if is_dtensor(dt):  # each rank scans its batch rows and d_inner channels
+        pl = spec_placements(("batch", None, "tp"), dt)
+        bpl = spec_placements(("batch",), bmat)
+        y, h = local_map(lambda *a: _mamba1_scan(*a, nchunk, lc), (dt, bmat, cmat, xin, A),
+                         (pl, bpl, bpl, pl, spec_placements(("tp",), A)),
+                         (pl, _state_placements(pl)))
+    else:
+        y, h = _mamba1_scan(dt, bmat, cmat, xin, A, nchunk, lc)
+
+    y = y + p["D"] * xin.float()
+    y = y.to(x.dtype) * F.silu(z)
+    out = shard(y @ w["out_proj"], "batch")
+    if return_cache:
+        tail = xin_raw[:, -(cfg.ssm_conv - 1) :, :]
+        return out, {"h": h, "conv": tail.to(torch.bfloat16)}
+    return out
+
+
+def _mamba1_weights(p: Params) -> Params:
+    """Mamba-1's projections as its products use them: FSDP-gathered,
+    d_inner over TP (identities on plain tensors)."""
+    return {"in_x": shard(p["in_x"], None, "tp"), "in_z": shard(p["in_z"], None, "tp"),
+            "xp_dt": shard(p["xp_dt"], "tp", None), "xp_B": shard(p["xp_B"], "tp", None),
+            "xp_C": shard(p["xp_C"], "tp", None), "dt_proj": shard(p["dt_proj"], None, "tp"),
+            "out_proj": shard(p["out_proj"], "tp", None)}
+
+
+def _mamba2_weights(p: Params) -> Params:
+    """Mamba-2's projections as its products use them (see
+    :func:`_mamba1_weights`); the small B, C and dt projections whole."""
+    return {"w_z": shard(p["w_z"], None, "tp"), "w_x": shard(p["w_x"], None, "tp"),
+            "w_B": shard(p["w_B"]), "w_C": shard(p["w_C"]), "w_dt": shard(p["w_dt"]),
+            "out_proj": shard(p["out_proj"], "tp", None)}
+
+
+def h0_like(t: torch.Tensor, *tail: int) -> torch.Tensor:
+    """A zero state (B, *C, *tail) made like ``t``'s (B, S, *C) first rows
+    (so on a DTensor it takes their sharding)."""
+    s0 = t[:, 0]
+    return torch.zeros_like(s0[(...,) + (None,) * len(tail)].expand(*s0.shape, *tail))
+
+
+def _state_placements(pl: tuple) -> tuple:
+    """Placements of a state (B, *C, ...) made from a (B, S, *C) tensor
+    placed by ``pl``: the sequence dim dropped."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(p.dim - (p.dim > 1)) if p.is_shard() and p.dim != 1 else
+                 (Replicate() if p.is_shard() else p) for p in pl)
+
+
+def _mamba1_scan(dt, bmat, cmat, xin, A, nchunk: int, lc: int):
+    """The chunked selective scan: (y (B, S, di) float32, the final state
+    (B, di, ns)); the (b, lc, di, ns) discretised tensors exist one chunk
+    at a time."""
+    h = h0_like(dt, A.shape[-1])
     ys = []
     for dt_c, b_c, c_c, x_c in zip(*(_chunks(t, nchunk, lc) for t in (dt, bmat, cmat, xin))):
         da_c = torch.exp(dt_c[..., None] * A)  # (b, lc, di, ns)
@@ -153,15 +215,7 @@ def apply_mamba1(p: Params, x: torch.Tensor, cfg: ModelConfig, *, return_cache: 
         _, b_scan = associative_scan(da_c, dbx_c)
         ys.append(torch.einsum("bldn,bln->bld", b_scan, c_c.float()))
         h = b_scan[:, -1]
-    y = torch.cat(ys, dim=1)
-
-    y = y + p["D"] * xin.float()
-    y = y.to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"]
-    if return_cache:
-        tail = xin_raw[:, -(cfg.ssm_conv - 1) :, :]
-        return out, {"h": h, "conv": tail.to(torch.bfloat16)}
-    return out
+    return torch.cat(ys, dim=1), h
 
 
 def mamba1_cache_shape(cfg: ModelConfig, batch: int):
@@ -174,13 +228,14 @@ def mamba1_cache_shape(cfg: ModelConfig, batch: int):
 def decode_mamba1(p: Params, x: torch.Tensor, cache: Params, cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
     """Single-token step.  x: (B, 1, D); cache: {h, conv}.  Returns the
     output and the new {h, conv} (new tensors; the cache is not written)."""
-    xin_raw = x[:, 0] @ p["in_x"]
-    z = x[:, 0] @ p["in_z"]
+    w = _mamba1_weights(p)
+    xin_raw = x[:, 0] @ w["in_x"]
+    z = x[:, 0] @ w["in_z"]
     window = torch.cat([cache["conv"].to(xin_raw.dtype), xin_raw[:, None, :]], dim=1)  # (b, k, di)
     xin = F.silu(_conv_step(window, p["conv_w"], p["conv_b"]))
-    dt = softplus(matmul(xin @ p["xp_dt"], p["dt_proj"]) + p["dt_bias"])
-    bvec = xin @ p["xp_B"]
-    cvec = xin @ p["xp_C"]
+    dt = softplus(matmul(xin @ w["xp_dt"], w["dt_proj"]) + p["dt_bias"])
+    bvec = xin @ w["xp_B"]
+    cvec = xin @ w["xp_C"]
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt[..., None] * A)  # (b, di, ns)
     dBx = dt[..., None] * bvec.float()[:, None, :] * xin.float()[..., None]
@@ -188,7 +243,7 @@ def decode_mamba1(p: Params, x: torch.Tensor, cache: Params, cfg: ModelConfig) -
     y = torch.einsum("bdn,bn->bd", h, cvec.float())
     y = y + p["D"] * xin.float()
     y = y.to(x.dtype) * F.silu(z)
-    return (y @ p["out_proj"])[:, None, :], {"h": h, "conv": window[:, 1:, :].to(torch.bfloat16)}
+    return (y @ w["out_proj"])[:, None, :], {"h": h, "conv": window[:, 1:, :].to(torch.bfloat16)}
 
 
 # ---------------------------------------------------------------------------
@@ -260,11 +315,12 @@ def apply_mamba2(p: Params, x: torch.Tensor, cfg: ModelConfig, *, return_cache: 
     lc = _chunk_len(cfg, s_len)
     nchunk = s_len // lc
 
-    z = x @ p["w_z"]
-    x_raw = x @ p["w_x"]
-    b_raw = x @ p["w_B"]
-    c_raw = x @ p["w_C"]
-    dtl = matmul(x, p["w_dt"])
+    w = _mamba2_weights(p)
+    z = x @ w["w_z"]
+    x_raw = shard(x @ w["w_x"], "batch", None, "tp")
+    b_raw = x @ w["w_B"]
+    c_raw = x @ w["w_C"]
+    dtl = matmul(x, w["w_dt"])
     xin = F.silu(_causal_conv(x_raw, p["conv_x"], p["conv_x_b"]))
     bmat = F.silu(_causal_conv(b_raw, p["conv_B"], p["conv_B_b"]))
     cmat = F.silu(_causal_conv(c_raw, p["conv_C"], p["conv_C_b"]))
@@ -273,20 +329,43 @@ def apply_mamba2(p: Params, x: torch.Tensor, cfg: ModelConfig, *, return_cache: 
     da = dt * A  # log-decay per step
 
     xh = xin.reshape(b, s_len, nh, hd).float() * dt[..., None]
-    h = torch.zeros((b, nh, hd, ns), dtype=torch.float32, device=x.device)
-    ys = []
-    for da_c, x_c, b_c, c_c in zip(*(_chunks(t, nchunk, lc) for t in (da, xh, bmat.float(), cmat.float()))):
-        h, y_c = _ssd_chunk(h, da_c, x_c, b_c, c_c)
-        ys.append(y_c)
-    y = torch.cat(ys, dim=1)  # (b, s, nh, hd)
+    xh = shard(xh, "batch", None, "tp", None)  # heads over model
+    bf, cf = bmat.float(), cmat.float()
+    if is_dtensor(xh):  # each rank scans its batch rows and heads
+        xpl = spec_placements(("batch", None, "tp"), xh)
+        dpl = placements_like(xpl, da)
+        bpl = spec_placements(("batch",), bf)
+        y, h = local_map(lambda *a: _ssd_scan(*a, nchunk, lc), (da, xh, bf, cf), (dpl, xpl, bpl, bpl),
+                         (xpl, _state_placements(xpl)))
+    else:
+        y, h = _ssd_scan(da, xh, bf, cf, nchunk, lc)  # y (b, s, nh, hd)
     y = y + p["D"][:, None] * xin.reshape(b, s_len, nh, hd).float()
     y = y.reshape(b, s_len, di).to(x.dtype)
     y = _gated_rmsnorm(y, z, p["norm_scale"])
-    out = y @ p["out_proj"]
+    out = shard(y @ w["out_proj"], "batch")
     if return_cache:
         tail = torch.cat([x_raw, b_raw, c_raw], dim=-1)[:, -(cfg.ssm_conv - 1) :, :]
         return out, {"h": h, "conv": tail.to(torch.bfloat16)}
     return out
+
+
+def placements_like(pl: tuple, t: torch.Tensor) -> tuple:
+    """``pl`` (placements of a (B, S, H, ...) tensor) for ``t`` of (B, S,
+    H): a shard of a dim ``t`` lacks is dropped."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(p if not p.is_shard() or p.dim < t.ndim else Replicate() for p in pl)
+
+
+def _ssd_scan(da, xh, bf, cf, nchunk: int, lc: int):
+    """The chunked SSD scan: (y (B, S, nh, hd), the final state (B, nh, hd,
+    ns))."""
+    h = h0_like(xh, bf.shape[-1])
+    ys = []
+    for da_c, x_c, b_c, c_c in zip(*(_chunks(t, nchunk, lc) for t in (da, xh, bf, cf))):
+        h, y_c = _ssd_chunk(h, da_c, x_c, b_c, c_c)
+        ys.append(y_c)
+    return torch.cat(ys, dim=1), h
 
 
 def mamba2_cache_shape(cfg: ModelConfig, batch: int):
@@ -303,9 +382,10 @@ def decode_mamba2(p: Params, x: torch.Tensor, cache: Params, cfg: ModelConfig) -
     di, ns = cfg.d_inner, cfg.ssm_state
     nh, hd = cfg.ssm_heads, cfg.ssm_head_dim
     x0 = x[:, 0]
-    z = x0 @ p["w_z"]
-    new_raw = torch.cat([x0 @ p["w_x"], x0 @ p["w_B"], x0 @ p["w_C"]], dim=-1)
-    dtl = matmul(x0, p["w_dt"])
+    w = _mamba2_weights(p)
+    z = x0 @ w["w_z"]
+    new_raw = torch.cat([x0 @ w["w_x"], x0 @ w["w_B"], x0 @ w["w_C"]], dim=-1)
+    dtl = matmul(x0, w["w_dt"])
     window = torch.cat([cache["conv"].to(new_raw.dtype), new_raw[:, None, :]], dim=1)  # (b, k, di + 2ns)
     wx, wb, wc = torch.split(window, [di, ns, ns], dim=-1)
     xin = F.silu(_conv_step(wx, p["conv_x"], p["conv_x_b"]))
@@ -320,4 +400,4 @@ def decode_mamba2(p: Params, x: torch.Tensor, cache: Params, cfg: ModelConfig) -
     y = y + p["D"][:, None] * xin.reshape(b, nh, hd).float()
     y = y.reshape(b, di).to(x.dtype)
     y = _gated_rmsnorm(y, z, p["norm_scale"])
-    return (y @ p["out_proj"])[:, None, :], {"h": h, "conv": window[:, 1:, :].to(torch.bfloat16)}
+    return (y @ w["out_proj"])[:, None, :], {"h": h, "conv": window[:, 1:, :].to(torch.bfloat16)}

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.core.device import resolve_device
+from repro_torch.dist.hints import shard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -203,6 +204,8 @@ def _stack_init(key: torch.Tensor, cfg: ModelConfig, kind: str, n: int, *, devic
     keys = prng.split(key, n)
     first = init_block(keys[0], cfg, kind, device=device)
     stack = tree_map(lambda a: torch.empty((n, *a.shape), dtype=a.dtype, device=a.device), first)
+    if first and next(tree_leaves(first)).is_meta:  # shapes only: one block tells them
+        return stack
 
     def put(i, block):
         for dst, src in zip(tree_leaves(stack), tree_leaves(block)):
@@ -218,8 +221,12 @@ def _stack_init(key: torch.Tensor, cfg: ModelConfig, kind: str, n: int, *, devic
 def init_model(key: torch.Tensor, cfg: ModelConfig, *, device=None) -> Params:
     """Build the full parameter tree (stacked per homogeneous group) on
     ``device`` (default ``"cuda"``; raises without a card), the reference's
-    ``init_model(jax.random.PRNGKey(seed), cfg)`` bit for bit."""
+    ``init_model(jax.random.PRNGKey(seed), cfg)`` bit for bit.  On
+    ``device="meta"`` only the shapes and dtypes: nothing is drawn (``key``
+    may be None) and nothing allocated."""
     dev = resolve_device(device)
+    if key is None and dev.type == "meta":
+        key = prng.PRNGKey(0)
     ks = prng.split(key, 8)
     dt = L._dtype(cfg)
     params: Params = {
@@ -252,7 +259,8 @@ def init_model(key: torch.Tensor, cfg: ModelConfig, *, device=None) -> Params:
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm, then float32 logits against the tied embedding."""
     x = L.apply_norm(params["final_norm"], x, cfg)
-    return x.float() @ params["embed"].float().T
+    embed = shard(params["embed"], "tp", None)  # FSDP-gathered, vocab over TP
+    return shard(x.float() @ embed.float().T, "batch", None, "tp")  # vocab stays TP-sharded
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -304,7 +312,7 @@ def forward(
       hybrid : [ k mamba2 layers | shared (weight-tied) attention block ] x n_seg
     """
     b, s_len = tokens.shape
-    x = params["embed"][tokens]
+    x = shard(params["embed"][tokens], "batch", None, None)
     positions = _positions(b, s_len, x.device)
     if cfg.family == "audio":
         context = _encode_audio(params, cfg, context)

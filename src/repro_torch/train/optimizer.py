@@ -12,6 +12,13 @@ float32 temporaries stay small beside a stacked leaf (zamba2's (54, 2560,
 5120) ``w_z`` is 2.8 GB in float32).  A tree here is a dict of tensors, nested
 dicts allowed; leaves are visited in sorted key order, as ``jax.tree``
 visits a dict's, so the global norm sums them in the reference's order.
+
+On DTensor leaves (the dry-run's sharded params) the state is made
+``*_like`` the params, so it takes their placements; each gradient is
+first redistributed to its parameter's placements (FSDP's reduce-scatter),
+and the update runs on the ranks' local shards (``to_local()``): slicing a
+sharded leaf into ``UPDATE_CHUNK`` pieces would force a redistribution,
+and AdamW is elementwise, so the shards' update is exact.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ def _leaves(tree) -> list:
 
 def init(params: Any) -> OptState:
     """Zero moments and float32 masters on the parameters' devices."""
-    zeros = _map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    zeros = _map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=_leaves(params)[0].device),
         mu=zeros,
@@ -96,8 +103,12 @@ def update(
 ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (new params in their own dtypes, new state,
     metrics)."""
+    from torch.distributed.tensor import DTensor
+
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
+    if isinstance(scale, DTensor):  # replicated: every rank's local value is the scalar
+        scale = scale.full_tensor()
     step = state.step + 1
     lr = schedule(cfg, step)
     b1c = 1.0 - torch.pow(cfg.b1, step.to(torch.float32))
@@ -113,6 +124,12 @@ def update(
         return mu, nu, m
 
     def upd(g, mu, nu, m):
+        if isinstance(g, DTensor):
+            if tuple(g.placements) != tuple(m.placements):
+                g = g.redistribute(m.device_mesh, m.placements)
+            out = upd(*(t.to_local() for t in (g, mu, nu, m)))
+            return tuple(DTensor.from_local(o, m.device_mesh, m.placements, run_check=False,
+                                            shape=m.shape, stride=m.stride()) for o in out)
         if g.numel() <= UPDATE_CHUNK:
             return upd_chunk(g, mu, nu, m)
         out = tuple(torch.empty_like(t) for t in (mu, nu, m))

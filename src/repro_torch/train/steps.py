@@ -14,6 +14,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.dist.hints import shard
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.train import optimizer as opt_lib
@@ -96,7 +97,9 @@ def make_decode_step(model: Model):
     def decode_step(params, batch):
         logits, cache = model.decode(params, batch["cache"], batch["tokens"], batch["cache_len"],
                                      context=batch.get("context"))
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        # the vocab gathered first under a mesh: DTensor's argmax over a
+        # sharded dim fails on a batch of one row a rank (long_500k)
+        next_tok = torch.argmax(shard(logits[:, -1], "batch"), dim=-1).to(torch.int32)
         return next_tok, logits, cache
 
     return decode_step

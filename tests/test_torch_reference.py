@@ -1,10 +1,11 @@
 """Scoped import of the JAX reference package for the port's parity tests.
 
 The reference needs ``jax.experimental.enable_x64``, which jax 0.9 moved
-to ``jax.enable_x64``.  :func:`reference_package` installs that alias only
-while a test module holds the ``ref`` fixture, imports ``repro``, and on
-teardown restores ``jax.experimental`` and drops every ``repro`` module it
-imported — so the JAX package's own test files see the same interpreter
+to ``jax.enable_x64``, and calls ``jax.shard_map(..., check_rep=)``, which
+jax 0.9 renamed ``check_vma=``.  :func:`reference_package` installs both
+aliases only while a test module holds the ``ref`` fixture, imports
+``repro``, and on teardown restores ``jax`` and ``jax.experimental`` and
+drops every ``repro`` module it imported — so the JAX package's own test files see the same interpreter
 state whether or not these tests ran in their worker.  Nothing is installed
 at import or collection time.
 
@@ -51,6 +52,14 @@ _REF_MODULES = {
     "ckpt": "repro.dist.checkpoint",
     "stream": "repro.api.stream",
     "serve": "repro.launch.serve",
+    "hints": "repro.dist.hints",
+    "sharding": "repro.dist.sharding",
+    "collectives": "repro.dist.collectives",
+    "hlo_cost": "repro.analysis.hlo_cost",
+    "roofline": "repro.analysis.roofline",
+    "transformer": "repro.models.transformer",
+    "lm": "repro.models.model",
+    "lm_configs": "repro.configs",
 }
 
 
@@ -61,7 +70,9 @@ def _is_ref(name: str) -> bool:
 @contextlib.contextmanager
 def reference_package():
     """Yield a namespace of the reference's modules, imported under the
-    ``enable_x64`` alias; undo the alias and the imports on exit."""
+    ``enable_x64`` and ``check_rep`` aliases; undo the aliases and the
+    imports on exit."""
+    import functools
     import importlib
 
     import jax
@@ -69,13 +80,23 @@ def reference_package():
 
     missing = object()
     saved = jax.experimental.__dict__.get("enable_x64", missing)
+    saved_shard_map = jax.shard_map
     before = set(sys.modules)
     jax.experimental.enable_x64 = lambda new_val=True: jax.enable_x64(new_val)
+
+    @functools.wraps(saved_shard_map)
+    def shard_map(*args, check_rep=None, **kwargs):
+        if check_rep is not None:
+            kwargs["check_vma"] = check_rep
+        return saved_shard_map(*args, **kwargs)
+
+    jax.shard_map = shard_map
     try:
         yield types.SimpleNamespace(
             **{k: importlib.import_module(v) for k, v in _REF_MODULES.items()}
         )
     finally:
+        jax.shard_map = saved_shard_map
         if saved is missing:
             del jax.experimental.enable_x64
         else:
@@ -133,6 +154,7 @@ import repro_torch.fit, repro_torch.fit.ingest, repro_torch.fit.recover
 import repro_torch.configs, repro_torch.models.model, repro_torch.train.steps, repro_torch.analysis.roofline
 import repro_torch.models.ssm
 import repro_torch.dist.fault, repro_torch.launch.train
+import repro_torch.dist.sharding, repro_torch.dist.collectives, repro_torch.launch.dryrun
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))
 assert not bad, bad
@@ -175,7 +197,9 @@ def test_whole_port_imports_with_jax_blocked():
               "repro_torch.api.stream", "repro_torch.launch.serve", "repro_torch.kernels._build",
               "repro_torch.train.optimizer", "repro_torch.data.pipeline", "repro_torch.fit.ingest",
               "repro_torch.fit.recover", "repro_torch.models.model", "repro_torch.configs.base",
-              "repro_torch.analysis.roofline", "repro_torch.dist.fault", "repro_torch.launch.train"):
+              "repro_torch.analysis.roofline", "repro_torch.dist.fault", "repro_torch.launch.train",
+              "repro_torch.dist.hints", "repro_torch.dist.sharding", "repro_torch.dist.collectives",
+              "repro_torch.launch.mesh", "repro_torch.launch.dryrun", "repro_torch.analysis.op_cost"):
         assert m in mods, m
 
 
