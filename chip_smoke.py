@@ -197,10 +197,31 @@ the step's inputs within DRYRUN_PEAK_REL of the max_memory_allocated
 delta, and no CUDA-event step time below its row's t_ideal or modelled
 step; (c) compressed_grad_allreduce over a world-size-1 NCCL group bit
 for bit against the CPU's over gloo.  It exits non-zero when a gate fails.
+
+    python3 chip_smoke.py --lint
+
+builds the kernels and checks the linter (repro_torch.lint) against what
+the card does: (a) the static half, no finding over src/repro_torch, with
+the rule catalog; (b) the runtime halves on warm calls at full size (two
+warm calls on keys 0 and 1, then one on key 2 under three instruments: the
+sync debug mode's sites, torch.profiler's host -> device copies, and counts
+of nvcc runs and library loads) of the n = 2^15 default, split (mu = 0.5)
+and ball-dropping sessions' sample() and sample_stream(), a KPGM host
+sample at d = 20, and full olmo-1b's decode step and train step at
+8 x 128.  Gates: no build or load in a warm call; every sync site inside a
+step-reachable function is a line that host-sync-in-step or
+dynamic-shape-in-step flags or pragmas (the other sites, the sessions' own
+read-backs, are printed); no host -> device copy in the three sessions'
+warm calls.  It runs first in its process: late in the full run the
+profiler loses device events.
 """
 
 from __future__ import annotations
 
+import ast
+import collections
+import contextlib
+import ctypes
 import dataclasses
 import inspect
 import json
@@ -212,6 +233,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 from pathlib import Path
 
@@ -2497,23 +2519,42 @@ def lm_close(what: str, got: torch.Tensor, want: torch.Tensor, bound: float) -> 
     return err
 
 
+def _port_frame(filename: str, lineno: int) -> str:
+    """``path:line`` of the innermost frame of the call in ``src/repro_torch``
+    (the port's line that reached the op), else of the op's caller."""
+    port = os.path.join(ROOT, "src", "repro_torch") + os.sep
+    for frame in reversed(traceback.extract_stack()):
+        if frame.filename.startswith(port):
+            return f"{os.path.relpath(frame.filename, ROOT)}:{frame.lineno}"
+    return f"{os.path.relpath(filename, ROOT)}:{lineno}"
+
+
 def sync_sites(fn) -> dict:
     """The host-device synchronisations one call of ``fn`` makes
-    (``torch.cuda.set_sync_debug_mode("warn")``): their count and the
-    source lines that made them."""
+    (``torch.cuda.set_sync_debug_mode("warn")``; a copy from pageable host
+    memory syncs too): their count, and every site with its count, as the
+    innermost line of ``src/repro_torch`` on the stack (else the line that
+    called the op)."""
+    hits = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # the first call in a process also warns that the mode is a
+        # prototype ("... synchronizing operations"): a notice, not a sync
+        text = str(message)
+        if "synchroniz" in text and "prototype" not in text:
+            hits.append(_port_frame(filename, lineno))
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    # the first call in a process also warns that the mode is a prototype
-    # ("... synchronizing operations"): a notice, not a sync
-    hits = [w for w in caught if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
-    sites = sorted({f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in hits})
-    return {"count": len(hits), "sites": sites[:12]}
+    per_site = collections.Counter(hits)
+    return {"count": len(hits), "sites": dict(sorted(per_site.items()))}
 
 
 def lm_timings(model, params, prompts, what: str, context=None) -> dict:
@@ -3420,6 +3461,217 @@ def phase_dryrun(device) -> dict:
     return {"rows": rows, "checks": checks, "collective": coll}
 
 
+LINT_STEP_RULES = {"host-sync-in-step", "dynamic-shape-in-step"}
+
+
+def lint_static() -> tuple:
+    """``repro_torch.lint`` over ``src/repro_torch``: the catalog, the
+    findings, and a map of which lines lie in step-reachable functions and
+    which of those the two step rules flag or carry a pragma of."""
+    from repro_torch.lint import ALL_RULES, lint_paths
+    from repro_torch.lint.engine import LintEngine, iter_python_files, parse_file_info
+
+    src = os.path.join(ROOT, "src", "repro_torch")
+    for rule in ALL_RULES:
+        log(f"lint rule {rule.name}: {rule.description}")
+    findings = lint_paths([src])
+    for f in findings:
+        log(f"lint finding {os.path.relpath(f.path, ROOT)}:{f.line}:{f.col}: {f.rule}: {f.message}")
+    log(f"lint static: {len(ALL_RULES)} rules, {len(findings)} finding(s)")
+    files = []
+    for path in iter_python_files([src]):
+        with open(path, encoding="utf-8") as fh:
+            files.append(parse_file_info(path, fh.read()))
+    project = LintEngine(ALL_RULES).build_context(files)
+    step_rules = [r for r in ALL_RULES if r.name in LINT_STEP_RULES]
+    lines = {}
+    for info in files:
+        spans, stmts, marked = [], [], set()
+        for node in ast.walk(info.tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                spans.append((node.lineno, node.end_lineno, node.name))
+            if isinstance(node, ast.stmt):
+                body = getattr(node, "body", None)
+                # a compound statement owns its header lines only
+                end = body[0].lineno - 1 if isinstance(body, list) and body else node.end_lineno
+                stmts.append((node.lineno, max(end, node.lineno)))
+        for rule in step_rules:
+            for _, node in rule.check(info, project):
+                marked.update(range(node.lineno, node.end_lineno + 1))
+        marked.update(ln for ln, rules in info.line_pragmas.items() if rules & (LINT_STEP_RULES | {"all"}))
+        whole = bool(info.file_pragmas & (LINT_STEP_RULES | {"all"}))
+        lines[os.path.relpath(info.path, ROOT)] = (spans, stmts, marked, whole)
+    return findings, lines, project.step_reachable
+
+
+def lint_site(lines: dict, reachable: set, site: str) -> tuple:
+    """(innermost function, in a step, covered) of a ``path:line`` sync site:
+    in a step when the innermost function holding the line is step-reachable;
+    covered when a step rule flags, or a pragma of one marks, a line of the
+    innermost statement holding it."""
+    path, _, ln = site.rpartition(":")
+    if path not in lines:
+        return None, False, False
+    spans, stmts, marked, whole = lines[path]
+    ln = int(ln)
+    fns = [sp for sp in spans if sp[0] <= ln <= sp[1]]
+    if not fns:
+        return None, False, False
+    fn = min(fns, key=lambda sp: sp[1] - sp[0])[2]
+    around = [st for st in stmts if st[0] <= ln <= st[1]]
+    lo, hi = min(around, key=lambda st: st[1] - st[0]) if around else (ln, ln)
+    return fn, fn in reachable, whole or any(x in marked for x in range(lo, hi + 1))
+
+
+@contextlib.contextmanager
+def build_counters():
+    """Counts of ``_build._nvcc`` runs and ``ctypes.CDLL`` loads in the block."""
+    counts = {"nvcc": 0, "cdll": 0}
+    nvcc, cdll = _build._nvcc, ctypes.CDLL
+
+    def counted_nvcc(*args, **kwargs):
+        counts["nvcc"] += 1
+        return nvcc(*args, **kwargs)
+
+    class CountedCDLL(cdll):
+        def __init__(self, *args, **kwargs):
+            counts["cdll"] += 1
+            super().__init__(*args, **kwargs)
+
+    _build._nvcc, ctypes.CDLL = counted_nvcc, CountedCDLL
+    try:
+        yield counts
+    finally:
+        _build._nvcc, ctypes.CDLL = nvcc, cdll
+
+
+def htod_copies(fn) -> tuple:
+    """(fn(), host -> device copies in one call by torch.profiler: their
+    count, the device events seen and the memcpy events by kind).  A copy
+    from pageable memory also syncs, so its site is among sync_sites'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CPU]
+    kinds = collections.Counter(e.name for e in device if e.name.startswith("Memcpy"))
+    copies = sum(n for k, n in kinds.items() if k.startswith("Memcpy HtoD"))
+    return out, {"count": copies, "device_events": len(device), "memcpy_kinds": dict(kinds)}
+
+
+def lint_path(fn, keys) -> dict:
+    """Two warm calls of ``fn`` on ``keys[0]`` and ``keys[1]``, then a third on
+    ``keys[2]`` under the three instruments: the build and load counters,
+    the profiler's host -> device copies and the sync debug mode's sites."""
+    for k in keys[:2]:
+        fn(k)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with build_counters() as built:
+        syncs, copies = htod_copies(lambda: sync_sites(lambda: fn(keys[2])))
+    return {"builds": dict(built), "htod": copies, "seconds": time.perf_counter() - t, "syncs": syncs}
+
+
+def phase_lint(device) -> dict:
+    """``--lint``: the linter's static half over ``src/repro_torch`` and its
+    runtime halves on the card, on warm calls at full size (gates: no
+    finding; no build or library load in a warm call; every sync site in a
+    step-reachable function flagged by a step rule or under its pragma;
+    no host -> device copy in a warm sample() / sample_stream() of the
+    quilt, split and ball-dropping sessions, as the reference's transfer
+    guard holds them)."""
+    t0 = time.perf_counter()
+    findings, lines, reachable = lint_static()
+    failures = [f"{len(findings)} lint finding(s)"] if findings else []
+    keys = [prng.PRNGKey(SEED + i) for i in range(3)]
+    sessions = {
+        "quilt": MAGMSampler(paper_config(FULL_LOG2_N, device)),
+        "split": MAGMSampler(split_config(FULL_LOG2_N, 0.5, device)),
+        "balldrop": MAGMSampler(balldrop_config(FULL_LOG2_N, device)),
+    }
+    paths = {}
+    for what, sampler in sessions.items():
+        paths[f"{what} sample"] = (lambda k, s=sampler: s.sample(k), True)
+        paths[f"{what} sample_stream"] = (
+            lambda k, s=sampler: list(s.sample_stream(k, chunk_edges=RESUME_CHUNK)), True)
+    kpgm_s = KPGMSampler(SamplerConfig(params=kpgm.make_params(THETA_1, KPGM_D), backend="host", device=device))
+    paths[f"kpgm host sample d={KPGM_D}"] = (lambda k: kpgm_s.sample(k), False)
+
+    model = lm_model.build(lm_configs.get("olmo-1b"))
+    params = model.init(prng.PRNGKey(SEED), device=device)
+    cfg = model.cfg
+    prompts = prng.randint(prng.PRNGKey(SEED + 1), (LM_BATCH, LM_PROMPT), 0, cfg.vocab_size, device=device)
+    prefill = lm_steps.make_prefill_step(model, max_len=LM_PROMPT + LM_GEN)
+    decode = lm_steps.make_decode_step(model)
+    with torch.inference_mode():
+        logits, cache = prefill(params, {"tokens": prompts})
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    del logits
+
+    def decode_step(_):
+        with torch.inference_mode():
+            return decode(params, {"cache": cache, "tokens": tok, "cache_len": LM_PROMPT})
+
+    paths["olmo-1b decode_step"] = (decode_step, False)
+    toks = prng.randint(prng.PRNGKey(SEED + 2), (TRAIN_BATCH, TRAIN_SEQ + 1), 0, cfg.vocab_size, device=device)
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    train_step = lm_steps.make_train_step(model, opt_lib.OptConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=100))
+    state = {"params": trainable(params), "opt": None}
+    state["opt"] = opt_lib.init(state["params"])
+
+    def train(_):
+        state["params"], state["opt"], m = train_step(state["params"], state["opt"], batch)
+        return m
+
+    paths[f"olmo-1b train_step {TRAIN_BATCH}x{TRAIN_SEQ}"] = (train, False)
+
+    out = {}
+    for what, (fn, held) in paths.items():
+        r = lint_path(fn, keys)
+        sites = {}
+        for site, n in r["syncs"]["sites"].items():
+            fn_name, in_step, covered = lint_site(lines, reachable, site)
+            sites[site] = {"count": n, "function": fn_name, "in_step": in_step, "covered": covered}
+        r["sync_sites"] = sites
+        log(f"lint path {what}: syncs={r['syncs']['count']} htod={r['htod']['count']} builds={r['builds']} "
+            f"seconds={r['seconds']}")
+        for site, v in sites.items():
+            log(f"lint path {what}: sync site {site} x{v['count']} in {v['function']} "
+                f"{'(step, ' + ('flagged)' if v['covered'] else 'NOT FLAGGED)') if v['in_step'] else '(outside the steps)'}")
+        log(f"lint path {what}: htod {json.dumps(r['htod'])}")
+        if r["builds"] != {"nvcc": 0, "cdll": 0}:
+            failures.append(f"{what}: a warm call built or loaded a library: {r['builds']}")
+        missed = [site for site, v in sites.items() if v["in_step"] and not v["covered"]]
+        if missed:
+            failures.append(f"{what}: sync sites in steps that no step rule flags: {missed}")
+        if held:
+            if r["htod"]["device_events"] == 0:
+                failures.append(f"{what}: the profiler saw no device event")
+            if r["htod"]["count"]:
+                failures.append(f"{what}: {r['htod']['count']} host -> device copies")
+        out[what] = {"syncs": r["syncs"]["count"],
+                     "sites_in_steps": sum(v["in_step"] for v in sites.values()),
+                     "sites_outside": sum(not v["in_step"] for v in sites.values()),
+                     "htod": r["htod"]["count"], "builds": r["builds"], "seconds": r["seconds"]}
+    log(f"lint seconds={time.perf_counter() - t0}")
+    if failures:
+        raise AssertionError("lint gates failed:\n" + "\n".join(failures))
+    return {"findings": len(findings), "paths": out}
+
+
+def ok_line() -> str:
+    """The contracted last line."""
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+
+
 def main(argv) -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3491,6 +3743,12 @@ def main(argv) -> int:
                                                                      "t_step_s", "t_ideal_s", "peak_bytes_per_chip")}
                                             for r in dr["rows"]],
                                    "checks": dr["checks"], "collective": dr["collective"]}}))
+        return 0
+    if argv == ["--lint"]:
+        lint = phase_lint(device)
+        log(nvidia_smi())
+        log(json.dumps({"lint": lint}))
+        log(ok_line())
         return 0
     if argv == ["--split"]:
         split = phase_split_and_batches(device, MAGMSampler(paper_config(FULL_LOG2_N, device)))
@@ -3602,11 +3860,7 @@ def main(argv) -> int:
     log(f"full run seconds={time.perf_counter() - t0}")
     log(nvidia_smi())
     log(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    log(ok_line())
     return 0
 
 

@@ -127,7 +127,7 @@ def load_state(
 
 
 def _save(directory: str, state: Dict[str, np.ndarray]) -> None:
-    _ckpt.save(directory, int(state["chunks_emitted"]), state)
+    _ckpt.save(directory, int(state["chunks_emitted"]), state)  # lint: disable=host-sync-in-step -- not a step: a host state dict, reached by the name _save
     _ckpt.prune(directory, keep=_KEEP)
 
 

@@ -130,7 +130,7 @@ def _bd_round_body(
         pair = snode.to(torch.int64) * (1 << node_bits) + dnode.to(torch.int64)
         valid = valid & quilt._exact_cell_valid(
             quilt.accept_salt(rkey, dev), gid, scfg, dcfg, plan.thetas, budget,
-            log_extra=2.0 * math.log(float(plan.B)), cell=pair,
+            log_extra=2.0 * math.log(plan.B), cell=pair,
         )
     cum_asks = torch.arange(1, gc + 1, dtype=torch.int64, device=dev) * a_tot
     take, counts = dedup.segmented_unique_mask(
@@ -314,7 +314,11 @@ def balldrop_run(
     nb = quilt._node_bits(n)
     if total > 0:
         gids = torch.arange(S, dtype=torch.int32, device=plan.device)
-        tdev = torch.from_numpy(targets).to(plan.device)
+        tdev = (  # exact targets are one constant: filled in on the device, not copied there
+            torch.full((S,), budget, dtype=torch.int64, device=plan.device)
+            if exact
+            else torch.from_numpy(targets).to(plan.device)
+        )
         for r in range(1 if exact else max_rounds):
             chaos.maybe_fail("quilt.round")
             ask = budget if exact else dedup.uniform_ask(shortfall, oversample * plan.bd_cost)

@@ -232,7 +232,7 @@ def sample_edge_batch(key: torch.Tensor, thetas, num_edges: int, *, device=None)
     order the reference's compiled ``sample_edge_batch`` sums it.
     Duplicates are possible; callers dedupe."""
     dev = resolve_device(device)
-    cum = _level_cumprobs(torch.as_tensor(thetas, dtype=torch.float32).cpu()).to(dev)
+    cum = _level_cumprobs(torch.as_tensor(thetas, dtype=torch.float32).cpu()).to(dev)  # lint: disable=host-sync-in-step -- the (d, 4) level table, summed on the host in the reference's order
     return descend_draw(key, cum, int(num_edges))
 
 
@@ -281,7 +281,8 @@ def _graph_lookup(asks: np.ndarray, num_blocks: int, tables, device):
     fused batch is block pair g' of sample s)."""
     g = torch.repeat_interleave(
         torch.arange(len(asks), dtype=torch.int32, device=device),
-        torch.from_numpy(np.asarray(asks, dtype=np.int64)).to(device),
+        torch.from_numpy(np.asarray(asks, dtype=np.int64)).to(device),  # lint: disable=host-sync-in-step -- the round's host-planned asks, one copy a round
+        output_size=int(np.sum(asks)),
     ) % (num_blocks * num_blocks)
     return (g // num_blocks, g % num_blocks, *tables)
 
@@ -344,10 +345,10 @@ def _many_round(key, cum, asks: np.ndarray, targets: np.ndarray, *, num_candidat
     dev = cum.device
     lookup = None if lookup_spec is None else _graph_lookup(asks, lookup_spec[0], lookup_spec[1], dev)
     out = descend_draw(key, cum, num_candidates, lookup=lookup)
-    cum_asks = torch.from_numpy(np.cumsum(asks)).to(dev)
+    cum_asks = torch.from_numpy(np.cumsum(asks)).to(dev)  # lint: disable=host-sync-in-step -- the round's host-planned asks, one copy a round
     graph_id = torch.searchsorted(cum_asks, torch.arange(num_candidates, device=dev), right=True)
     take, counts = dedup.segmented_unique_mask(
-        graph_id, out[0], out[1], cum_asks, torch.from_numpy(np.asarray(targets)).to(dev),
+        graph_id, out[0], out[1], cum_asks, torch.from_numpy(np.asarray(targets)).to(dev),  # lint: disable=host-sync-in-step -- the round's host-planned targets, one copy a round
         node_bits=cum.shape[0],
     )
     return out, take, counts

@@ -85,7 +85,7 @@ def _words(key: Key, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     if key.shape != (2,):
         raise ValueError(f"a key is a (2,) tensor of uint32 words, got {tuple(key.shape)}")
     if device is not None:
-        key = key.to(device)
+        key = key.to(device)  # lint: disable=host-sync-in-step -- a host key's 16 bytes go to the draw's device once a draw
     return key[0], key[1]
 
 
@@ -113,7 +113,7 @@ def fold_in(key: Key, data: int) -> Key:
 
 
 def _shape(shape: Shape) -> Tuple[int, ...]:
-    return (int(shape),) if isinstance(shape, int) else tuple(int(s) for s in shape)
+    return (int(shape),) if isinstance(shape, int) else tuple(int(s) for s in shape)  # lint: disable=host-sync-in-step -- a shape of Python ints
 
 
 def bits(

@@ -346,8 +346,11 @@ def _accept_u01(salt: torch.Tensor, gid: torch.Tensor, cell: torch.Tensor) -> to
 
 
 def accept_salt(rkey: torch.Tensor, device) -> torch.Tensor:
-    """The round's acceptance salt: 64 bits of ``fold_in(rkey, 0x5EED)``."""
-    return prng.bits(prng.fold_in(rkey, 0x5EED), (), "uint64").to(device)
+    """The round's acceptance salt: 64 bits of ``fold_in(rkey, 0x5EED)``,
+    drawn where the key lives and filled in on ``device`` (no host -> device
+    copy)."""
+    salt = int(prng.bits(prng.fold_in(rkey, 0x5EED), (), "uint64"))  # lint: disable=host-sync-in-step -- the sessions' keys live on the host; a key on the card costs one 8-byte read
+    return torch.full((), salt, dtype=torch.int64, device=device)
 
 
 def _exact_alpha(
@@ -363,9 +366,9 @@ def _exact_alpha(
     logp = kpgm.log_prob_pairs(thetas, scfg, dcfg)
     logpi = logp - kpgm.log_level_sum(thetas)
     if log_extra:
-        logpi = logpi - torch.tensor(log_extra, dtype=torch.float32, device=logp.device)
+        logpi = logpi - torch.full((), log_extra, dtype=torch.float32, device=logp.device)
     pi = f32math.exp(logpi)
-    g = torch.tensor(float(budget), dtype=torch.float32, device=logp.device)
+    g = torch.full((), float(budget), dtype=torch.float32, device=logp.device)
     q = -f32math.expm1(g * f32math.log1p(-pi))
     return torch.clamp_max(f32math.exp(logp - f32math.log(q)), 1.0)
 
@@ -688,7 +691,11 @@ def quilt_run(
     a_tot = 0
     if total > 0:
         gids = torch.arange(gtot, dtype=torch.int32, device=plan.device)
-        tdev = torch.from_numpy(targets).to(plan.device)
+        tdev = (  # exact targets are one constant: filled in on the device, not copied there
+            torch.full((gtot,), budget, dtype=torch.int64, device=plan.device)
+            if exact
+            else torch.from_numpy(targets).to(plan.device)
+        )
         for r in range(1 if exact else max_rounds):
             chaos.maybe_fail("quilt.round")
             ask = budget if exact else dedup.uniform_ask(shortfall, oversample)
@@ -1059,8 +1066,8 @@ def _split_heavy_body(hkey: torch.Tensor, sp: SplitPlan, *, budget: int, node_bi
     accept = _accept_u01(accept_salt(hkey, dev), gid0, pair) < sp.blk_alpha[m]
     take, _ = dedup.segmented_unique_mask(
         torch.zeros(budget, dtype=torch.int32, device=dev), src, dst,
-        torch.tensor([budget], dtype=torch.int64, device=dev),
-        torch.tensor([budget], dtype=torch.int64, device=dev),
+        torch.full((1,), budget, dtype=torch.int64, device=dev),
+        torch.full((1,), budget, dtype=torch.int64, device=dev),
         node_bits=node_bits, valid=accept,
     )
     return src, dst, take

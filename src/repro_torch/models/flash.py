@@ -114,8 +114,8 @@ def _flash_fwd_impl(q, k, v, causal, window, q_offset, q_chunk, kv_chunk) -> Tup
             kblk = k[:, ki * kc : (ki + 1) * kc]
             vblk = v[:, ki * kc : (ki + 1) * kc]
             if rep > 1:  # GQA: broadcast KV -> H for this chunk only
-                kblk = kblk.repeat_interleave(rep, dim=2)
-                vblk = vblk.repeat_interleave(rep, dim=2)
+                kblk = kblk.repeat_interleave(rep, dim=2, output_size=h)
+                vblk = vblk.repeat_interleave(rep, dim=2, output_size=h)
             kpos = ki * kc + torch.arange(kc, device=dev)
             s = _f32_einsum("bqhd,bkhd->bhqk", qblk, kblk) * scale
             s = torch.where(_mask(qpos, kpos, causal, window)[None, None], s, NEG_INF)

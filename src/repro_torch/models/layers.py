@@ -65,7 +65,7 @@ def draw_normal(key: torch.Tensor, shape, scale: float, dtype: torch.dtype, devi
     if out.is_meta:  # shapes and dtypes only
         return out
     flat = out.view(-1)
-    s = torch.tensor(scale, dtype=torch.float32, device=device)
+    s = torch.full((), scale, dtype=torch.float32, device=device)
     for a in range(0, flat.numel(), INIT_CHUNK):
         b = min(a + INIT_CHUNK, flat.numel())
         flat[a:b] = (prng.normal(key, (b - a,), offset=a, device=device) * s).to(dtype)
@@ -378,7 +378,7 @@ def _capacity(tokens_per_row: int, cfg: ModelConfig) -> int:
     full = tokens_per_row * cfg.experts_per_token
     if full <= 128:
         return max(((full + 7) // 8) * 8, cfg.experts_per_token)
-    c = int(full * cfg.capacity_factor / cfg.num_experts)
+    c = int(full * cfg.capacity_factor / cfg.num_experts)  # lint: disable=host-sync-in-step -- config arithmetic on Python numbers
     if c >= 128:
         return ((c + 127) // 128) * 128
     return max(((c + 7) // 8) * 8, cfg.experts_per_token)

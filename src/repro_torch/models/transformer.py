@@ -225,8 +225,8 @@ def init_model(key: torch.Tensor, cfg: ModelConfig, *, device=None) -> Params:
     ``device="meta"`` only the shapes and dtypes: nothing is drawn (``key``
     may be None) and nothing allocated."""
     dev = resolve_device(device)
-    if key is None and dev.type == "meta":
-        key = prng.PRNGKey(0)
+    if dev.type == "meta":  # nothing is drawn: any key will do
+        key = prng.PRNGKey(0) if key is None else key
     ks = prng.split(key, 8)
     dt = L._dtype(cfg)
     params: Params = {
@@ -389,7 +389,7 @@ def decode_step(
     self layers' K/V, as the reference returns the n_self entries)."""
     b = tokens.shape[0]
     x = params["embed"][tokens]
-    positions = torch.full((b, 1), int(cache_len), dtype=torch.int32, device=x.device)
+    positions = torch.full((b, 1), int(cache_len), dtype=torch.int32, device=x.device)  # lint: disable=host-sync-in-step -- cache_len is the serve loop's host int
     if cfg.family == "audio":
         context = cache["enc_out"]
 
