@@ -214,6 +214,20 @@ dynamic-shape-in-step flags or pragmas (the other sites, the sessions' own
 read-backs, are printed); no host -> device copy in the three sessions'
 warm calls.  It runs first in its process: late in the full run the
 profiler loses device events.
+
+    python3 chip_smoke.py --mesh
+
+builds the kernels and runs the sampler on a ``graphs`` mesh over a
+world-size-1 NCCL group that the session starts (``mesh="auto"``): (a) the
+exact session, ball dropping and the split (mu = 0.5) at n = 2^15, each
+equal to the same session without a mesh on five keys, kernel 1 launched
+by the mesh run, host-clock ms of both and the NCCL kernels' device ms;
+(b) the 4- and 3-rank layouts' gid chunks, padding rows included, through
+_round_body on the card one after another, their concatenation equal to
+the whole round and kernel 1 equal to its plain version on the last chunk;
+(c) kpgm_sample_distributed at d = 16 on the card mesh against the CPU
+port on a gloo mesh over the same world; (d) restore(shardings=) onto the
+card mesh.  It ends with the contracted line; any mismatch exits non-zero.
 """
 
 from __future__ import annotations
@@ -3576,6 +3590,182 @@ def lint_path(fn, keys) -> dict:
     return {"builds": dict(built), "htod": copies, "seconds": time.perf_counter() - t, "syncs": syncs}
 
 
+MESH_KPGM_D = 16  # kpgm_sample_distributed on the card against the CPU port: ~1.2 M edges
+MESH_LAYOUTS = (4, 3)  # shard counts whose gid chunks run one after another (3: padding rows at n = 2^15)
+
+
+def collective_ms(fn) -> tuple:
+    """(result, device ms of the NCCL kernels, their launches) of one call
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if "nccl" in e.key.lower() and e.self_device_time_total > 0]
+    return out, sum(e.self_device_time_total for e in hits) / 1e3, sum(e.count for e in hits)
+
+
+def mesh_vs_plain(what: str, plain, meshed, keys) -> dict:
+    """``meshed`` (a world-size-1 NCCL mesh session) against ``plain`` (the
+    same config, no mesh) on ``keys``: the edges equal, kernel 1 launched
+    by the mesh run, host-clock ms of both, the NCCL kernels' device ms."""
+    for i, k in enumerate(keys):
+        want = plain.sample(k).edges
+        ops.reset_kernel_launches()
+        got = meshed.sample(k).edges
+        torch.cuda.synchronize()
+        launches = ops.kernel_launches()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"mesh {what}: the mesh session's edges differ from the unsharded session's")
+        if i == 0 and launches["quilt_prng_descent_lookup"] < 1:
+            raise AssertionError(f"mesh {what}: the mesh run launched no quilt_prng_descent_lookup")
+    plain_ms = timed_runs(plain.sample, keys)
+    mesh_ms = timed_runs(meshed.sample, keys)
+    _, nccl_ms, nccl_launches = collective_ms(lambda: meshed.sample(keys[0]))
+    out = {"edges": int(want.shape[0]), "plain_ms": plain_ms, "mesh_ms": mesh_ms,
+           "plain_ms_median": statistics.median(plain_ms), "mesh_ms_median": statistics.median(mesh_ms),
+           "nccl_device_ms": nccl_ms, "nccl_launches": nccl_launches, "launches": launches}
+    log(f"mesh {what} n=2^{FULL_LOG2_N}: mesh == no mesh, {json.dumps(out)}")
+    return out
+
+
+def mesh_chunks(plan, device) -> dict:
+    """(b) The exact round of ``plan`` as each layout's ranks run it: the
+    padded gids cut into equal chunks, each through _round_body (kernel 1)
+    in turn; their concatenation equals the whole round and the padding
+    rows take nothing; the last chunk's kernel 1 against its plain version."""
+    from repro_torch.dist import hints, sharding
+
+    key = prng.PRNGKey(SEED + 3)
+    k, _ = prng.split(key)
+    _, rkey = prng.split(k)
+    budget = quilt._exact_budget(plan.p_max, plan.mean_edges)
+    gtot = plan.num_graphs
+    ops.reset_kernel_launches()
+    whole = quilt._round_body(rkey, torch.arange(gtot, dtype=torch.int32, device=device),
+                              torch.full((gtot,), budget, dtype=torch.int64, device=device), plan,
+                              a_tot=budget, budget=budget, use_kernel=True)
+    out = {}
+    for shards in MESH_LAYOUTS:
+        layout = sharding.graph_layout(hints.MeshShape(("graphs",), (shards,)), gtot)
+        gids, tdev = quilt._pad_inputs(gtot, layout.padded, None, budget, device)
+        chunk = layout.padded // shards
+        parts = [quilt._round_body(rkey, gids[r * chunk:(r + 1) * chunk], tdev[r * chunk:(r + 1) * chunk], plan,
+                                   a_tot=budget, budget=budget, use_kernel=True) for r in range(shards)]
+        rows = gtot * budget
+        for j, name in enumerate(("scfg", "dcfg", "snode", "dnode", "take", "counts")):
+            cat = torch.cat([p[j] for p in parts])
+            n_real = gtot if name == "counts" else rows
+            if not torch.equal(cat[:n_real], whole[j]):
+                raise AssertionError(f"mesh chunks ({shards} ranks): {name} differs from the whole round")
+            if name in ("take", "counts") and bool(cat[n_real:].any()):
+                raise AssertionError(f"mesh chunks ({shards} ranks): a padding row took {name}")
+        seed = ops.counter_seed(rkey)
+        last = gids[(shards - 1) * chunk:]
+        args = (seed, last, plan.cum, plan.table_cfg, plan.table_node)
+        got = qd.quilt_prng_descent_lookup(*args, a_tot=budget, num_blocks=plan.B)
+        want = qd.quilt_prng_descent_lookup_plain(*args, a_tot=budget, num_blocks=plan.B)
+        torch.cuda.synchronize()
+        equal_or_raise(got, want, f"quilt_prng_descent_lookup on the last of {shards} gid chunks")
+        out[shards] = {"padded": layout.padded, "padding_rows": layout.padded - gtot, "chunk_graphs": chunk}
+        log(f"mesh chunks: {shards} ranks' chunks of {chunk} graphs ({layout.padded - gtot} padding) == "
+            f"the whole round of {gtot} graphs x {budget} slots; kernel == plain on the last chunk")
+    out["launches"] = ops.kernel_launches()["quilt_prng_descent_lookup"]
+    return out
+
+
+def mesh_kpgm(mesh) -> dict:
+    """(c) kpgm_sample_distributed on the card's NCCL mesh against the CPU
+    port's on a gloo mesh over the same 1-rank world."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core import distributed
+
+    cpu_mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu", mesh=[0], mesh_dim_names=("graphs",))
+    params = kpgm.make_params(THETA_1, MESH_KPGM_D)
+    key = prng.PRNGKey(SEED + 150)
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    got = distributed.kpgm_sample_distributed(key, params, mesh)
+    card_ms = (time.perf_counter() - t) * 1e3
+    launches = ops.kernel_launches()
+    t = time.perf_counter()
+    want = distributed.kpgm_sample_distributed(key, params, cpu_mesh)
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    if not np.array_equal(got, want):
+        raise AssertionError("kpgm_sample_distributed: the card's edges differ from the CPU port's")
+    if launches["quadrant_descent"] < 1:
+        raise AssertionError("kpgm_sample_distributed launched no quadrant_descent on the card")
+    check_edges(got, params.num_nodes, f"kpgm_sample_distributed d={MESH_KPGM_D}")
+    out = {"edges": int(got.shape[0]), "card_ms": card_ms, "cpu_ms": cpu_ms, "launches": launches}
+    log(f"mesh kpgm_sample_distributed d={MESH_KPGM_D}: card == CPU, {json.dumps(out)}")
+    return out
+
+
+def mesh_restore(mesh, device) -> dict:
+    """(d) restore(shardings=) onto the card mesh: placed leaves come back
+    as DTensors on the card with the saved bits, the unplaced one as the
+    target's kind."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    tree = {"w": prng.normal(prng.PRNGKey(SEED + 160), (1024, 64)).to(device),
+            "b": prng.normal(prng.PRNGKey(SEED + 161), (512,)).to(torch.bfloat16).to(device),
+            "n": np.arange(6, dtype=np.int32)}
+    with tempfile.TemporaryDirectory() as d:
+        ckpt_mod.save(d, 3, tree)
+        got, _ = ckpt_mod.restore(d, 3, tree, shardings={"w": (mesh, (Shard(0),)), "b": (mesh, (Replicate(),)),
+                                                         "n": None})
+    for k in ("w", "b"):
+        g = got[k]
+        if not (isinstance(g, DTensor) and g.device.type == device.type and g.dtype == tree[k].dtype):
+            raise AssertionError(f"restore(shardings=): {k} came back as {type(g).__name__} {g.dtype}")
+        if not torch.equal(g.to_local(), tree[k]):
+            raise AssertionError(f"restore(shardings=): {k}'s shard differs from the saved bits")
+    if not np.array_equal(got["n"], tree["n"]):
+        raise AssertionError("restore(shardings=): the unplaced leaf differs")
+    log("mesh restore(shardings=): w Shard(0), b Replicate() as card DTensors with the saved bits")
+    return {"leaves": 3, "placed": 2}
+
+
+def phase_mesh(device) -> dict:
+    """``--mesh``: the sampler on a world-size-1 NCCL ``graphs`` mesh that
+    the session starts.  (a) the exact session, ball dropping and the split
+    at n = 2^15 equal to the unsharded sessions, with both times; (b) the
+    4- and 3-rank layouts' gid chunks through _round_body on the card,
+    concatenated, equal to the whole round; (c) kpgm_sample_distributed on
+    the card against the CPU port; (d) restore(shardings=) onto the card
+    mesh.  The world is torn down at the end."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        keys = [prng.PRNGKey(SEED + 170 + i) for i in range(5)]
+        for what, cfg in (("exact", paper_config(FULL_LOG2_N, device)),
+                          ("balldrop", balldrop_config(FULL_LOG2_N, device)),
+                          ("split", split_config(FULL_LOG2_N, 0.5, device))):
+            plain, meshed = MAGMSampler(cfg), MAGMSampler(cfg.replace(mesh="auto"))
+            want = mesh_lib.SamplerWorld("nccl" if device.type == "cuda" else "gloo", 1, 0, True)
+            if meshed.world != want or meshed.mesh.device_type != device.type:
+                raise AssertionError(f"mesh {what}: the session took {meshed.world} on {meshed.mesh}")
+            out[what] = mesh_vs_plain(what, plain, meshed, keys)
+            if what == "exact":
+                mesh = meshed.mesh
+                out["chunks"] = mesh_chunks(plain.plan, device)
+            del plain, meshed
+        out["kpgm_distributed"] = mesh_kpgm(mesh)
+        out["restore"] = mesh_restore(mesh, device)
+    finally:
+        mesh_lib.release()
+    log(f"mesh seconds={time.perf_counter() - t0}")
+    return out
+
+
 def phase_lint(device) -> dict:
     """``--lint``: the linter's static half over ``src/repro_torch`` and its
     runtime halves on the card, on warm calls at full size (gates: no
@@ -3748,6 +3938,12 @@ def main(argv) -> int:
         lint = phase_lint(device)
         log(nvidia_smi())
         log(json.dumps({"lint": lint}))
+        log(ok_line())
+        return 0
+    if argv == ["--mesh"]:
+        mesh = phase_mesh(device)
+        log(nvidia_smi())
+        log(json.dumps({"mesh": mesh}))
         log(ok_line())
         return 0
     if argv == ["--split"]:

@@ -29,9 +29,10 @@ class SamplerConfig:
     version.  ``device`` is where the session runs (default ``"cuda"``; a
     session raises when no card is present).  The other fields mean what
     they mean in the reference (``split=True`` is the section-5 split
-    sampler, ``bprime`` its light-part cap); ``mesh``, which this port does
-    not run yet (ROADMAP queue 1 item 7b), makes the session raise
-    ``NotImplementedError``.
+    sampler, ``bprime`` its light-part cap).  ``mesh`` is None, ``"auto"``
+    (a ``graphs`` mesh over the running process group's ranks, or a 1-rank
+    group the session starts), ``"host"`` (a ``data`` mesh over the same
+    ranks) or a DeviceMesh (``repro_torch.launch.mesh``).
     """
 
     params: Any

@@ -19,6 +19,12 @@ draws several graphs through shared fused rounds (sample s's block pair g'
 is graph s * B^2 + g'), or one by one with ``fold_in(key, s)`` keys where
 a batch cannot be fused (the split, the host paths, a batch past the
 candidate cap).
+
+``SamplerConfig.mesh`` is resolved once, at session build, by
+``launch.mesh.resolve_sampler_mesh`` (``"auto"``: a ``graphs`` mesh over
+every rank of the running world, or of a 1-rank world the session starts);
+every engine call of the session runs on it, and its results equal the
+unsharded session's bit for bit on every rank.
 """
 
 from __future__ import annotations
@@ -42,14 +48,18 @@ KPGM_PLAN_MAX_NODES = 1 << 20
 
 
 class _Session:
-    """Shared session plumbing: config checks, device, key stream."""
+    """Shared session plumbing: config checks, device, mesh, key stream.
+    ``world`` records the process group a mesh session runs over
+    (``launch.mesh.SamplerWorld``: its backend, size, this rank, and
+    whether the session started it); None without a mesh."""
 
     def __init__(self, config: SamplerConfig, key: Optional[torch.Tensor]):
-        reason = quilt.unported_reason(mesh=config.mesh)
-        if reason is not None:
-            raise NotImplementedError(f"{reason} is not ported yet")
+        from repro_torch.launch import mesh as mesh_lib
+
         self.config = config
         self.device = resolve_device(config.device)
+        self.mesh = mesh_lib.resolve_sampler_mesh(config.mesh, device=self.device)
+        self.world = None if self.mesh is None else mesh_lib.sampler_world(self.device)
         self._key = key if key is not None else prng.PRNGKey(0)
 
     def _next_key(self) -> torch.Tensor:
@@ -68,7 +78,8 @@ class _Session:
         c = self.config
         return quilt.quilt_run(
             key, self.plan, num_samples=num_samples, targets=targets, max_rounds=c.max_rounds,
-            oversample=c.oversample, backend=c.backend, use_kernel=c.use_kernel, exact_cells=exact_cells,
+            oversample=c.oversample, backend=c.backend, use_kernel=c.use_kernel, mesh=self.mesh,
+            exact_cells=exact_cells,
         )
 
     def _chunks(self, chunks) -> Iterator[np.ndarray]:
@@ -203,7 +214,7 @@ class MAGMSampler(_Session):
         c = self.config
         return quilt.split_run(
             key, self.split_plan, max_rounds=c.max_rounds, oversample=c.oversample,
-            backend=c.backend, use_kernel=c.use_kernel,
+            backend=c.backend, use_kernel=c.use_kernel, mesh=self.mesh,
         )
 
     def sample(self, key: Optional[torch.Tensor] = None) -> GraphSample:

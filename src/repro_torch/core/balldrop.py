@@ -57,6 +57,7 @@ DISPATCH_COUNTERS = {
     "device_rounds": 0,
     "device_topup_rounds": 0,
     "host_topup_rounds": 0,
+    "mesh_degrades": 0,
     "degraded_fallbacks": 0,
     "exact_fallbacks": 0,
 }
@@ -253,9 +254,11 @@ def balldrop_run(
     ``use_kernel`` None or True looks the ranks up through the kernel
     wrapper, False through the dense inverse or the by-config tables.
     Raises ``ValueError`` for a plan without ball-dropping moments.
+
+    ``mesh=`` shards the S sample streams as ``quilt.quilt_run`` shards its
+    graphs (the same layout, gathers and degrade-and-rerun on a
+    ``DeviceLoss``, counted in this module's ``DISPATCH_COUNTERS``).
     """
-    if mesh is not None:
-        raise NotImplementedError(f"{quilt.unported_reason(mesh=mesh)} is not ported yet")
     S = int(num_samples)
     if S < 1:
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
@@ -287,7 +290,9 @@ def balldrop_run(
         targets = np.clip(np.asarray(targets, dtype=np.int64).reshape(S), 0, n * n)
     total = int(targets.sum())
 
+    mesh, axes, s_pad = quilt._mesh_layout(mesh, S)
     ask0 = budget if exact else dedup.uniform_ask(targets, oversample * plan.bd_cost)
+    # layout-invariant device decision, as quilt_run's (S, not s_pad)
     if not (exact or S * ask0 <= kpgm.DEVICE_MAX_CANDIDATES):
         if S > 1:
             raise quilt.DeviceBatchUnavailable(
@@ -313,12 +318,7 @@ def balldrop_run(
     a_tot = 0
     nb = quilt._node_bits(n)
     if total > 0:
-        gids = torch.arange(S, dtype=torch.int32, device=plan.device)
-        tdev = (  # exact targets are one constant: filled in on the device, not copied there
-            torch.full((S,), budget, dtype=torch.int64, device=plan.device)
-            if exact
-            else torch.from_numpy(targets).to(plan.device)
-        )
+        gids, tdev = quilt._pad_inputs(S, s_pad, targets, budget, plan.device)
         for r in range(1 if exact else max_rounds):
             chaos.maybe_fail("quilt.round")
             ask = budget if exact else dedup.uniform_ask(shortfall, oversample * plan.bd_cost)
@@ -329,12 +329,21 @@ def balldrop_run(
                 # host top-up finishes the residual
                 break
             a_tot += ask
-            chaos.maybe_fail("quilt.dispatch")  # fatal for a DeviceLoss, as in quilt_run
-            outs = _bd_round_body(
-                rkey, gids, tdev, plan, a_tot=a_tot, node_bits=nb, arm=arm, budget=budget
-            )
+            while True:
+                try:
+                    chaos.maybe_fail("quilt.dispatch")
+                    lo, hi = quilt._shard_rows(mesh, axes, s_pad)
+                    outs = _bd_round_body(
+                        rkey, gids[lo:hi], tdev[lo:hi], plan, a_tot=a_tot, node_bits=nb, arm=arm,
+                        budget=budget,
+                    )
+                    break
+                except chaos.DeviceLoss as exc:
+                    # quilt_run's recovery: the sample streams are layout-invariant too
+                    mesh, axes, s_pad = quilt._degrade_layout(mesh, exc, S, DISPATCH_COUNTERS)
+                    gids, tdev = quilt._pad_inputs(S, s_pad, targets, budget, plan.device)
             DISPATCH_COUNTERS["device_rounds" if r == 0 else "device_topup_rounds"] += 1
-            counts = outs[3].cpu().numpy().astype(np.int64)
+            counts = quilt._gather_rows(outs[3], mesh, axes)[:S].cpu().numpy().astype(np.int64)
             shortfall = np.zeros_like(targets) if exact else targets - counts
             if shortfall.max(initial=0) <= 0:
                 break
@@ -343,7 +352,7 @@ def balldrop_run(
     if outs is not None:
         # the dedup's valid mask already excludes the misses: taken rows are
         # accepted balls
-        snode, dnode, keep, full_counts = outs
+        snode, dnode, keep = (quilt._gather_rows(x, mesh, axes) for x in outs[:3])
         if shortfall.max(initial=0) > 0:
             DISPATCH_COUNTERS["degraded_fallbacks"] += 1
             warnings.warn(
@@ -354,7 +363,7 @@ def balldrop_run(
                 stacklevel=2,
             )
             flat = (snode[keep].to(torch.int64) * n + dnode[keep].to(torch.int64)).cpu().numpy()
-            seen = list(np.split(flat, np.cumsum(full_counts.cpu().numpy().astype(np.int64))[:-1]))
+            seen = list(np.split(flat, np.cumsum(counts)[:-1]))
             counts = _host_balldrop_topup(key, plan, targets, counts, seen, tail, max_rounds, oversample)
     if exact:
         targets = counts.copy()

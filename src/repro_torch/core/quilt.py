@@ -32,8 +32,19 @@ looks them up in the kernel ``quilt_descent_lookup``, then dedupes on the
 host in arrival order.  ``backend="balldrop"`` goes to the ball-dropping
 engine (``core/balldrop.py``) over the same plan.  ``num_samples = S > 1``
 fuses S samples into the same rounds: block pair g' of sample s is graph
-s * B^2 + g'.  Meshes raise ``NotImplementedError`` naming their ROADMAP
-item.
+s * B^2 + g'.
+
+With ``mesh=`` (a DeviceMesh over a real process group,
+``launch.mesh.make_sampler_mesh``) every rank runs the engine on the same
+key and plan, and the graphs are laid out along the mesh's ``graphs`` role
+(``dist.sharding.graph_layout``): padded to a multiple of the shard count,
+rank r's round runs the contiguous chunk r of the gids, with no collective
+inside; one ``all_gather`` of the per-graph counts a round gives every rank
+the shortfall, and the run's buffers are gathered in graph order at its
+end.  A graph's candidates depend only on (key, global graph id, slot), so
+a mesh run equals the unsharded one bit for bit, on every rank.  A
+``DeviceLoss`` at ``quilt.dispatch`` rebuilds the mesh over the surviving
+ranks and re-runs the round (:func:`_degrade_layout`).
 
 The section-5 split (:func:`build_split_plan`, :func:`split_run`) pulls the
 configurations that occur more than B' times out into R heavy groups.  The
@@ -61,6 +72,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import dedup, f32math, kpgm, kron, magm, partition, prng
 from repro_torch.core.device import resolve_device
@@ -130,11 +142,14 @@ _CACHE_MAX = 8
 # after the first; host_topup_rounds: rounds of the host top-up loop after
 # the device rounds; degraded_fallbacks: runs whose device rounds ran out
 # (max_rounds or the candidate cap) short of their targets; exact_fallbacks:
-# runs that asked for the exact-cell mode and could not take it
+# runs that asked for the exact-cell mode and could not take it;
+# mesh_degrades: dispatch-time rank losses recovered by rebuilding the mesh
+# over the survivors
 DISPATCH_COUNTERS = {
     "device_rounds": 0,
     "device_topup_rounds": 0,
     "host_topup_rounds": 0,
+    "mesh_degrades": 0,
     "degraded_fallbacks": 0,
     "exact_fallbacks": 0,
 }
@@ -574,12 +589,105 @@ class QuiltRun(NamedTuple):
         ]
 
 
-def unported_reason(*, mesh=None) -> Optional[str]:
-    """Which requested path the port does not run yet, and the ROADMAP
-    queue-1 item that will port it; None for a path it runs."""
-    if mesh is not None:
-        return "mesh= (ROADMAP queue 1 item 7b: meshes)"
-    return None
+def _mesh_layout(mesh, num_graphs: int):
+    """``(mesh, graph axes, padded row count)`` of ``num_graphs`` graphs on
+    ``mesh``; ``(None, (), num_graphs)`` for no mesh or one without a graph
+    axis, which run the unsharded program."""
+    from repro_torch.dist import sharding as _dist_sharding
+
+    layout = _dist_sharding.graph_layout(mesh, num_graphs)
+    if not layout.axes:
+        return None, (), int(num_graphs)
+    if dist.get_backend(mesh.get_group(layout.axes[0])) == "fake":
+        raise ValueError("a sampler mesh needs a real process group, not the dry-run's fake one")
+    return mesh, layout.axes, layout.padded
+
+
+def _pad_inputs(gtot: int, g_pad: int, targets: np.ndarray, budget: Optional[int], device):
+    """``(gids, targets)`` of ``g_pad`` rows on ``device``: the graphs
+    0..gtot-1, then padding rows of gid 0 and target 0, which emit nothing.
+    Exact targets are one constant, filled in on the device (not copied
+    there)."""
+    gids = torch.arange(g_pad, dtype=torch.int32, device=device)
+    if budget is not None:
+        tdev = torch.full((g_pad,), budget, dtype=torch.int64, device=device)
+    else:
+        tdev = torch.from_numpy(np.pad(targets, (0, g_pad - gtot))).to(device)
+    if g_pad > gtot:
+        gids[gtot:] = 0
+        tdev[gtot:] = 0
+    return gids, tdev
+
+
+def _graph_groups(mesh, axes):
+    """The process groups of the graph axes, major first."""
+    return [mesh.get_group(a) for a in axes]
+
+
+def _shard_index(mesh, axes) -> Tuple[int, int]:
+    """``(index, count)`` of this rank's shard over the mesh ``axes``: its
+    row-major index, each axis in its group's rank order (the order
+    ``all_gather`` returns), and the product of the axes' sizes."""
+    idx, shards = 0, 1
+    for group in _graph_groups(mesh, axes):
+        size = dist.get_world_size(group)
+        idx = idx * size + dist.get_group_rank(group, dist.get_rank())
+        shards *= size
+    return idx, shards
+
+
+def _shard_rows(mesh, axes, g_pad: int) -> Tuple[int, int]:
+    """The rows ``[lo, hi)`` of the ``g_pad`` padded graphs that this rank
+    runs: chunk r of equal chunks, r = :func:`_shard_index`."""
+    if mesh is None:
+        return 0, g_pad
+    idx, shards = _shard_index(mesh, axes)
+    chunk = g_pad // shards
+    return idx * chunk, (idx + 1) * chunk
+
+
+def _gather_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Every shard's ``x`` concatenated in shard order, on every rank: an
+    ``all_gather`` over each graph axis, minor first (bool rides as
+    uint8)."""
+    if mesh is None:
+        return x
+    wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+    for group in reversed(_graph_groups(mesh, axes)):
+        parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, wire, group=group)
+        wire = torch.cat(parts)
+    return wire.to(torch.bool) if x.dtype == torch.bool else wire
+
+
+def _degrade_layout(mesh, exc: chaos.DeviceLoss, num_graphs: int, counters=None):
+    """Recover from a dispatch-time ``DeviceLoss``: ``(mesh, axes, g_pad)``
+    over the surviving ranks (``launch.mesh.degrade_sampler_mesh``).
+
+    Re-raises ``exc`` where no recovery exists (no mesh, a 1-rank mesh)
+    and on the lost rank itself, which leaves the run.  The re-run is
+    bit-identical on the smaller mesh: no graph's stream depends on the
+    layout, and a changed pad only adds zero-target rows."""
+    if mesh is None:
+        raise exc
+    from repro_torch.launch import mesh as _launch_mesh
+
+    try:
+        survivors = _launch_mesh.degrade_sampler_mesh(mesh, exc.device)
+    except ValueError:
+        raise exc from None
+    if survivors is None:
+        raise exc
+    out = _mesh_layout(survivors, num_graphs)
+    (DISPATCH_COUNTERS if counters is None else counters)["mesh_degrades"] += 1
+    warnings.warn(
+        f"device {exc.device} lost mid-dispatch: rebuilt the sampler mesh over "
+        f"{survivors.size()} surviving device(s) and re-running the round "
+        "(layout invariance keeps the edges bit-identical)",
+        RuntimeWarning,
+        stacklevel=3,
+    )
+    return out
 
 
 def _clip_targets(x: np.ndarray, ncfg: int) -> np.ndarray:
@@ -622,6 +730,10 @@ def quilt_run(
     ``backend="balldrop"`` runs the ball-dropping engine over the same plan
     (:func:`repro_torch.core.balldrop.balldrop_run`): one node-pair stream
     per sample, ``targets`` per sample, ``num_samples >= 1``.
+
+    ``mesh=`` (a DeviceMesh over a real process group; every rank calls
+    with the same arguments) gives each rank its chunk of the graphs and
+    returns, on every rank, the unsharded run's result (module docstring).
     """
     if backend == "balldrop":
         from repro_torch.core import balldrop  # balldrop imports this module
@@ -630,9 +742,6 @@ def quilt_run(
             key, plan, num_samples=num_samples, targets=targets, max_rounds=max_rounds,
             oversample=oversample, use_kernel=use_kernel, mesh=mesh, exact_cells=exact_cells,
         )
-    reason = unported_reason(mesh=mesh)
-    if reason is not None:
-        raise NotImplementedError(f"{reason} is not ported yet")
     S = int(num_samples)
     gtot = S * plan.num_graphs
     ncfg = 1 << plan.d
@@ -662,8 +771,9 @@ def quilt_run(
         ask0 = dedup.uniform_ask(targets, oversample)
     total = int(targets.sum())
 
+    mesh, axes, g_pad = _mesh_layout(mesh, gtot)
     # the decision depends on gtot and the first ask only, as the
-    # reference's does (layout-invariant)
+    # reference's does (layout-invariant: no shard count enters it)
     use_device = exact or backend == "device" or (
         backend == "auto" and gtot * ask0 <= kpgm.DEVICE_MAX_CANDIDATES
     )
@@ -690,12 +800,7 @@ def quilt_run(
     key, rkey = prng.split(key)
     a_tot = 0
     if total > 0:
-        gids = torch.arange(gtot, dtype=torch.int32, device=plan.device)
-        tdev = (  # exact targets are one constant: filled in on the device, not copied there
-            torch.full((gtot,), budget, dtype=torch.int64, device=plan.device)
-            if exact
-            else torch.from_numpy(targets).to(plan.device)
-        )
+        gids, tdev = _pad_inputs(gtot, g_pad, targets, budget, plan.device)
         for r in range(1 if exact else max_rounds):
             chaos.maybe_fail("quilt.round")
             ask = budget if exact else dedup.uniform_ask(shortfall, oversample)
@@ -706,15 +811,24 @@ def quilt_run(
                 # host loop finishes the residual
                 break
             a_tot += ask
-            # before the round's first launch, so a fault leaves no launch
-            # pending; with no mesh to rebuild (item 7b) a DeviceLoss here
-            # is fatal, as in the reference without a mesh
-            chaos.maybe_fail("quilt.dispatch")
-            outs = _round_body(
-                rkey, gids, tdev, plan, a_tot=a_tot, budget=budget, use_kernel=use_kernel
-            )
+            while True:
+                try:
+                    # before the round's first launch, so a fault leaves no
+                    # launch pending
+                    chaos.maybe_fail("quilt.dispatch")
+                    lo, hi = _shard_rows(mesh, axes, g_pad)
+                    outs = _round_body(
+                        rkey, gids[lo:hi], tdev[lo:hi], plan, a_tot=a_tot, budget=budget,
+                        use_kernel=use_kernel,
+                    )
+                    break
+                except chaos.DeviceLoss as exc:
+                    # the same program would fail alike: rebuild over the
+                    # survivors and re-run the round, to the same bits
+                    mesh, axes, g_pad = _degrade_layout(mesh, exc, gtot)
+                    gids, tdev = _pad_inputs(gtot, g_pad, targets, budget, plan.device)
             DISPATCH_COUNTERS["device_rounds" if r == 0 else "device_topup_rounds"] += 1
-            counts = outs[5].cpu().numpy().astype(np.int64)
+            counts = _gather_rows(outs[5], mesh, axes)[:gtot].cpu().numpy().astype(np.int64)
             # the exact thinning already realized each cell's draw
             shortfall = np.zeros_like(targets) if exact else targets - counts
             if shortfall.max(initial=0) <= 0:
@@ -723,8 +837,10 @@ def quilt_run(
     snode = dnode = keep = None
     if outs is not None:
         scfg, dcfg, snode, dnode, take, _ = outs
-        keep = take & (snode >= 0) & (dnode >= 0)
+        keep = _gather_rows(take & (snode >= 0) & (dnode >= 0), mesh, axes)
+        snode, dnode = _gather_rows(snode, mesh, axes), _gather_rows(dnode, mesh, axes)
         if shortfall.max(initial=0) > 0:
+            scfg, dcfg, take = (_gather_rows(x, mesh, axes) for x in (scfg, dcfg, take))
             DISPATCH_COUNTERS["degraded_fallbacks"] += 1
             warnings.warn(
                 f"device rounds exhausted (max_rounds={max_rounds}, {a_tot} slots/graph) "
@@ -1116,16 +1232,13 @@ def split_run(
     """One section-5 sample of ``sp`` for ``key``: ``((E, 2) edges, stats)``.
 
     The light subgraph is quilted (:func:`quilt_run` on ``sp.light_plan``,
-    mapped to node ids through W) and the heavy blocks are realized by the
+    sharded over ``mesh`` where given, mapped to node ids through W) and the heavy blocks are realized by the
     device round (:func:`_split_heavy_body`) keyed by a sibling split of
     ``key``; only its kept pairs are copied to the host.  With ``rng`` (a
     numpy Generator), or where the plan has no heavy budget, the heavy
     blocks are host binomials, drawn from ``rng`` or from
     :func:`rng_from_key`.  The pieces are deduped on the host in order
     (``dedup.dedup_edges``)."""
-    reason = unported_reason(mesh=mesh)
-    if reason is not None:
-        raise NotImplementedError(f"{reason} is not ported yet")
     W, R = sp.W, sp.R
     pieces: List[np.ndarray] = []
     stats_b = draws = kp_total = 0
@@ -1134,7 +1247,7 @@ def split_run(
         key, sub = prng.split(key)
         run = quilt_run(
             sub, sp.light_plan, max_rounds=max_rounds, oversample=oversample, backend=backend,
-            use_kernel=use_kernel,
+            use_kernel=use_kernel, mesh=mesh,
         )
         ew = run.edges()
         st = run.stats(ew.shape[0])

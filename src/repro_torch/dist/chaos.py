@@ -15,15 +15,16 @@ resilience layer is tested (and operated) with:
   (exponential backoff + deterministic jitter, overall deadline, typed
   retryable-vs-fatal classification).
 - :class:`InjectedFault` / :class:`DeviceLoss` — the canonical typed
-  faults.  ``DeviceLoss`` carries the lost device's index (a mesh would be
-  rebuilt over the survivors; the port runs none yet, so it is fatal);
+  faults.  ``DeviceLoss`` carries the lost device's index (a sampler mesh is
+  rebuilt over the survivors; without a mesh it is fatal);
   plain ``InjectedFault`` models a transient, retryable failure.
 
 Known sites (each checked once per event)::
 
     quilt.round        every engine round (quilt + balldrop), before work
     quilt.dispatch     every device round's dispatch, before its first
-                       launch (a DeviceLoss here is fatal: no mesh)
+                       launch (a DeviceLoss here degrades the mesh, and
+                       is fatal without one)
     stream.chunk       every emitted sample_stream chunk
     serve.request      every serve-request attempt (retried by policy)
     checkpoint.write   dist/checkpoint.save, before the temp write
@@ -79,8 +80,9 @@ class DeviceLoss(InjectedFault):
 
     ``device`` is the index of the lost device in the mesh's flattened
     device list.  The default :class:`RetryPolicy` treats it as fatal (a
-    retry of the same program would fail identically); the engines run no
-    mesh to rebuild over the survivors yet, so a loss ends the sample.
+    retry of the same program would fail identically); the engines rebuild
+    a sampler mesh over the survivors and re-run the round, and without a
+    mesh (or on a 1-rank one) a loss ends the sample.
     """
 
     def __init__(self, message: str = "device lost", device: int = 0):

@@ -19,7 +19,8 @@ bfloat16 leaf is written as its raw 16-bit words under dtype
 :func:`restore` takes a TARGET tree that fixes the structure and the
 expected leaf shapes and dtypes; a mismatch raises ValueError.  A torch
 target leaf comes back as a tensor on its device in its dtype, any other
-as a numpy array.
+as a numpy array; with ``shardings=``, a placed leaf comes back as a
+DTensor on its mesh (the elastic restart onto another mesh).
 """
 
 from __future__ import annotations
@@ -73,20 +74,47 @@ def _host_array(leaf: Any) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _flatten(tree: Any) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
-    """``(leaves, unflatten)`` of ``tree`` in ``jax.tree.flatten``'s order."""
+def _flatten(
+    tree: Any, is_leaf: Callable[[Any], bool] = lambda x: False
+) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
+    """``(leaves, unflatten)`` of ``tree`` in ``jax.tree.flatten``'s order;
+    ``is_leaf`` marks subtrees that count as one leaf."""
+    if is_leaf(tree):
+        return [tree], lambda leaves: leaves[0]
     if tree is None:
         return [], lambda leaves: None
     if isinstance(tree, dict):
         keys = sorted(tree)
-        parts = [_flatten(tree[k]) for k in keys]
+        parts = [_flatten(tree[k], is_leaf) for k in keys]
         return _join(parts, lambda vals: dict(zip(keys, vals)))
     if isinstance(tree, (list, tuple)):
-        parts = [_flatten(v) for v in tree]
+        parts = [_flatten(v, is_leaf) for v in tree]
         if hasattr(tree, "_fields"):  # a named tuple
             return _join(parts, lambda vals: type(tree)(*vals))
         return _join(parts, type(tree))
     return [tree], lambda leaves: leaves[0]
+
+
+def _treedef(tree: Any, is_leaf: Callable[[Any], bool] = lambda x: False) -> Any:
+    """A comparable description of ``tree``'s containers, in
+    :func:`_flatten`'s order, with ``"*"`` for each leaf (``is_leaf``
+    marks subtrees that count as one leaf)."""
+    if is_leaf(tree):
+        return "*"
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _treedef(tree[k], is_leaf)) for k in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(_treedef(v, is_leaf) for v in tree))
+    return "*"
+
+
+def _is_sharding(x: Any) -> bool:
+    """A leaf of a ``shardings`` tree: None or a (DeviceMesh, placements) pair."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return x is None or (isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], DeviceMesh))
 
 
 def _join(parts, build) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
@@ -170,13 +198,14 @@ def restore(directory: str, step: int, target: Any, *, shardings: Optional[Any] 
     target's own bfloat16 numpy dtype, or as a CPU tensor).  Raises
     ValueError when the stored leaves do not match the target's count,
     shapes or dtypes.
-    ``shardings`` (the reference's elastic restore onto a mesh) raises
-    ``NotImplementedError``: meshes are ROADMAP queue 1 item 7b.
+
+    ``shardings`` is a tree matching ``target`` whose leaves are None
+    (default placement) or ``(DeviceMesh, placements)`` pairs, the
+    placements as ``dist.sharding.param_shardings`` gives them: such a
+    leaf comes back as a DTensor on that mesh, each rank keeping its shard
+    of the bytes it read (no collective).  A tree of another structure
+    raises ValueError.
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=) (ROADMAP queue 1 item 7b: meshes) is not ported yet"
-        )
     path = _step_dir(directory, step)
     if not _complete(path):
         _recover(directory)  # the step may sit under .old/.tmp post-crash
@@ -193,8 +222,16 @@ def restore(directory: str, step: int, target: Any, *, shardings: Optional[Any] 
             f"checkpoint {path} has {len(meta['leaves'])} leaves, "
             f"target has {len(t_leaves)}"
         )
+    s_leaves = [None] * len(t_leaves)
+    if shardings is not None:
+        if _treedef(shardings, _is_sharding) != _treedef(target):
+            raise ValueError(
+                f"shardings tree structure {_treedef(shardings, _is_sharding)} does not match "
+                f"target structure {_treedef(target)}"
+            )
+        s_leaves = _flatten(shardings, _is_sharding)[0]
     out = []
-    for i, (entry, t_leaf) in enumerate(zip(meta["leaves"], t_leaves)):
+    for i, (entry, t_leaf, place) in enumerate(zip(meta["leaves"], t_leaves, s_leaves)):
         shape = tuple(entry["shape"])
         if shape != tuple(np.shape(t_leaf)):
             raise ValueError(
@@ -209,8 +246,20 @@ def restore(directory: str, step: int, target: Any, *, shardings: Optional[Any] 
             )
         with open(os.path.join(path, f"{i:05d}.bin"), "rb") as f:
             arr = np.frombuffer(bytearray(f.read()), dtype=words).reshape(shape)
-        out.append(_leaf_like(arr, name, t_leaf))
+        leaf = _leaf_like(arr, name, t_leaf)
+        if place is not None:
+            leaf = _placed(leaf, *place)
+        out.append(leaf)
     return unflatten(out), meta
+
+
+def _placed(leaf: Any, mesh, placements) -> torch.Tensor:
+    """``leaf`` as a DTensor of ``placements`` on ``mesh``: every rank read
+    the same bytes, so each keeps its own shard."""
+    from torch.distributed.tensor import distribute_tensor
+
+    t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(leaf)
+    return distribute_tensor(t.to(mesh.device_type), mesh, placements, src_data_rank=None)
 
 
 def _leaf_like(arr: np.ndarray, name: str, target: Any) -> Any:

@@ -117,5 +117,7 @@ def to_csr(el: EdgeList) -> Tuple[np.ndarray, np.ndarray]:
 
 def fit_data(el: EdgeList, *, shard_size: Optional[int] = None, mesh=None, device=None) -> FitData:
     """Pack an :class:`EdgeList` into MAGFIT's fixed-shape shards on
-    ``device`` (default ``"cuda"``; raises without a card)."""
+    ``device`` (default ``"cuda"``; raises without a card); ``mesh=``
+    rounds the shard count as :func:`repro_torch.fit.magfit.shard_edges`
+    does."""
     return shard_edges(el.edges, el.n, shard_size=shard_size, mesh=mesh, device=device)

@@ -127,11 +127,11 @@ def shard_edges(
     ``device`` (default ``"cuda"``; raises without a card).
 
     ``shard_size`` defaults to the least power of two >= E, at most 2^15
-    rows.  ``mesh=`` (shards rounded to the mesh's graphs axis) is not
-    ported: meshes are ROADMAP queue 1 item 7b.
+    rows.  With a ``mesh`` the shard count is rounded up to a multiple of
+    the mesh's graphs-axis size (``dist.sharding.graph_shard_axes``), so a
+    sharded E-step can split whole shards across ranks without
+    re-padding; the extra shards hold zero-weight rows.
     """
-    if mesh is not None:
-        raise NotImplementedError("shard_edges(mesh=) (ROADMAP queue 1 item 7b: meshes) is not ported yet")
     dev = resolve_device(device)
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     if edges.size and (edges.min() < 0 or edges.max() >= n):
@@ -143,6 +143,11 @@ def shard_edges(
     if k < 1:
         raise ValueError(f"shard_size must be >= 1, got {shard_size}")
     s = -(-e // k)
+    if mesh is not None:
+        from repro_torch.dist import sharding as _sharding
+
+        _, nshards = _sharding.graph_shard_axes(mesh)
+        s += (-s) % max(nshards, 1)
     src = np.zeros(s * k, dtype=np.int32)
     dst = np.zeros(s * k, dtype=np.int32)
     wt = np.zeros(s * k, dtype=np.float32)
@@ -749,8 +754,9 @@ def magfit(
     when the per-iteration gain falls below ``options.tol`` (relative) or
     after ``em_iters``.  ``phi_init`` seeds the posterior means (the true
     attributes in recovery tests, or a warm start); ``fit_phi=False``
-    freezes them, reducing EM to the M-step.  ``mesh=`` is not ported
-    (ROADMAP queue 1 item 7b).
+    freezes them, reducing EM to the M-step.  ``mesh=`` pads the edge
+    shards to a multiple of its graphs axis (:func:`shard_edges`), as the
+    reference does.
     """
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     if edges.shape[0] == 0:

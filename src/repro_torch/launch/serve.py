@@ -24,8 +24,11 @@ instead of unbounded queue delay:
 
 Both modes run on ``--device`` (default ``cuda``; they raise without a
 card, and never fall back to the CPU).  A card request that fails becomes a
-typed ``error`` response; it is never re-run on the CPU.  ``--mesh`` raises
-``NotImplementedError`` (ROADMAP queue 1 item 7b).
+typed ``error`` response; it is never re-run on the CPU.  ``--mesh`` builds
+the graph session with ``mesh="auto"``: a ``graphs`` mesh over the ranks of
+the running process group (each rank a process started by a launcher), or
+over a 1-rank group of this process; the LM mode runs on one device and
+refuses it.
 
 Response contract (``ServeResponse``), the reference's
 (``repro.launch.serve``): every request — well-formed or garbage — gets
@@ -345,12 +348,16 @@ def serve_graphs(args) -> None:
         params=magm.make_params(THETA_1, DEFAULT_MU, d),
         num_nodes=2**d,
         attribute_key=prng.PRNGKey(args.seed),
+        mesh="auto" if args.mesh else None,
         device=args.device,
     )
     t0 = time.perf_counter()
     sampler = MAGMSampler(config, key=prng.PRNGKey(args.seed + 1))
     t_build = time.perf_counter() - t0
-    print(f"[serve] session up in {t_build:.2f}s: n={sampler.n} B={sampler.plan.B} device={sampler.device}")
+    print(
+        f"[serve] session up in {t_build:.2f}s: n={sampler.n} B={sampler.plan.B} device={sampler.device} "
+        f"mesh={sampler.mesh} world={sampler.world}"
+    )
 
     total = empty = 0
     with GraphServer(
@@ -461,7 +468,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--chunk-edges", type=int, default=1 << 14)
     ap.add_argument("--device", default="cuda", help="device of the model or session (default: cuda)")
-    ap.add_argument("--mesh", action="store_true", help="shard over devices (not ported)")
+    ap.add_argument("--mesh", action="store_true", help="graph mode: shard the session over the world's ranks")
     ap.add_argument(
         "--max-queue",
         type=int,
@@ -474,8 +481,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh (ROADMAP queue 1 item 7b: meshes) is not ported yet")
+    if args.mesh and not args.magm:
+        raise ValueError("--mesh shards the graph sampler (--magm); the LM mode runs on one device")
     if args.magm:
         serve_graphs(args)
     else:

@@ -10,7 +10,10 @@ walks over a quilted MAGM graph sampled on the device
 (``data/pipeline.py``).  The weights are the reference's ``init_model``
 bits for ``--seed``, trained in the config's dtype by AdamW under
 :class:`repro_torch.dist.fault.TrainSupervisor`.  ``--mesh production``
-raises ``NotImplementedError`` (ROADMAP queue 1 item 7b: meshes).
+builds the 16x16 ``(data, model)`` mesh over the launched world with
+``init_device_mesh`` and resolves the sharding rules on it, which, as in the
+reference, then go unused; it needs a world of 256 ranks (one process a
+card, started by a launcher) and raises ValueError on any other.
 """
 
 from __future__ import annotations
@@ -46,9 +49,8 @@ class TrainRun(NamedTuple):
 def train(args) -> TrainRun:
     """Sample the corpus, init the model and train ``args.steps`` steps on
     ``args.device``; asserts that the loss fell."""
-    if args.mesh == "production":
-        raise NotImplementedError("--mesh production (ROADMAP queue 1 item 7b: meshes) is not ported yet")
     device = resolve_device(args.device)
+    mesh = _production_mesh(device) if args.mesh == "production" else None
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     model = build_model(cfg)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="qkg_train_")
@@ -73,11 +75,16 @@ def train(args) -> TrainRun:
     opt_state = opt_lib.init(params)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"[model] {cfg.name}: {n_params/1e6:.1f}M params")
-    # the reference's placement by the sharding rules: on the 1-device host
-    # mesh every spec is replicated, so the params stay where they are
-    specs = sharding.param_specs(cfg, params, hints.MeshShape(("data",), (1,)))
-    if any(any(e is not None for e in s) for s in tree_leaves(specs)):
-        raise AssertionError("the host mesh shards a param")
+    if mesh is None:
+        # the reference's placement by the sharding rules: on the 1-device
+        # host mesh every spec is replicated, so the params stay where they are
+        specs = sharding.param_specs(cfg, params, hints.MeshShape(("data",), (1,)))
+        if any(any(e is not None for e in s) for s in tree_leaves(specs)):
+            raise AssertionError("the host mesh shards a param")
+    else:
+        # the rules resolved on the real mesh, then left unused, as the
+        # reference leaves them: every rank trains the whole model
+        sharding.param_shardings(cfg, params, mesh)
 
     step_fn = steps_lib.make_train_step(model, opt_cfg)
     sup = fault.TrainSupervisor(step_fn, source.batch, ckpt_dir, ckpt_every=args.ckpt_every)
@@ -92,6 +99,25 @@ def train(args) -> TrainRun:
         raise AssertionError("loss did not decrease")
     print("[train] OK — loss decreased")
     return TrainRun(model, params, opt_state, metrics, source, ckpt_dir)
+
+
+def _production_mesh(device):
+    """The 16x16 production mesh over the launched world (the default
+    process group, one rank a card); ValueError where the world has another
+    size, as the reference fails on a host with fewer devices."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import PRODUCTION
+
+    shape, names = PRODUCTION[False]
+    need = shape[0] * shape[1]
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != need:
+        raise ValueError(
+            f"--mesh production needs a world of {need} ranks (one per card); this one has {have}"
+        )
+    return init_device_mesh(device.type, shape, mesh_dim_names=names)
 
 
 def build_parser() -> argparse.ArgumentParser:

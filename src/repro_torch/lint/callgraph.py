@@ -47,6 +47,7 @@ STEP_ROOTS = (
     "mstep",
     "sample_tile",
     "sample_edge_batch",
+    "sample_edges_sharded",
     # ... and the six kernel wrappers
     "quilt_prng_descent_lookup",
     "quadrant_descent_prng",

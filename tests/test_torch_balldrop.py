@@ -349,8 +349,14 @@ def test_balldrop_run_rejects(plans):
         balldrop.balldrop_run(prng.PRNGKey(0), pp._replace(bd_cost=None))
     with pytest.raises(ValueError, match="num_samples"):
         balldrop.balldrop_run(prng.PRNGKey(0), pp, num_samples=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        balldrop.balldrop_run(prng.PRNGKey(0), pp, mesh=object())
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.release()
+    try:  # the dry-run's fake world has no real collectives to shard over
+        with pytest.raises(ValueError, match="real process group"):
+            balldrop.balldrop_run(prng.PRNGKey(0), pp, mesh=mesh_lib.make_host_mesh())
+    finally:
+        mesh_lib.release()
 
 
 def test_quilt_run_dispatches_balldrop(ref, plans):

@@ -153,8 +153,12 @@ def test_restore_rejects_a_mismatched_target(tmp_path, target, match):
 def test_restore_of_a_missing_step_and_shardings(tmp_path):
     with pytest.raises(ValueError, match="no checkpoint at step 3"):
         ckpt.restore(str(tmp_path), 3, {})
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        ckpt.restore(str(tmp_path), 3, {}, shardings={})
+    saved = str(tmp_path / "saved")
+    ckpt.save(saved, 1, {"a": np.arange(4, dtype=np.float32)})
+    with pytest.raises(ValueError, match="shardings tree structure"):
+        ckpt.restore(saved, 1, {"a": np.zeros(4, np.float32)}, shardings={"b": None})
+    tree, _ = ckpt.restore(saved, 1, {"a": np.zeros(4, np.float32)}, shardings={"a": None})
+    assert np.array_equal(tree["a"], np.arange(4, dtype=np.float32))  # None: the default placement
     assert ckpt.available_steps(str(tmp_path / "absent")) == [] and ckpt.latest_step(str(tmp_path)) is None
 
 

@@ -26,6 +26,7 @@ import repro_torch.fit as fit_pkg
 from repro_torch import api, interop
 from repro_torch.core import magm, prng
 from repro_torch.data import pipeline
+from repro_torch.dist import hints
 from repro_torch.fit import ingest
 from repro_torch.fit import magfit as mf
 from repro_torch.fit import recover as rc
@@ -145,8 +146,11 @@ def test_to_csr_and_fit_data_bit_equal(ref):
         got = ingest.fit_data(el, shard_size=shard_size, device="cpu")
         want = ref.ingest.fit_data(rel, shard_size=shard_size)
         assert all(np.array_equal(g.numpy(), np.asarray(w)) for g, w in zip(got, want))
-    with pytest.raises(NotImplementedError, match="7b"):
-        ingest.fit_data(el, mesh=object(), device="cpu")
+    mesh = hints.MeshShape(("graphs",), (4,))  # names and sizes are all the rounding reads
+    got = ingest.fit_data(el, shard_size=8, mesh=mesh, device="cpu")
+    want = ref.ingest.fit_data(rel, shard_size=8, mesh=mesh)
+    assert got.src.shape[0] % 4 == 0 and got.src.shape[0] > ingest.fit_data(el, shard_size=8, device="cpu").src.shape[0]
+    assert all(np.array_equal(g.numpy(), np.asarray(w)) for g, w in zip(got, want))
 
 
 # -- recover's host parts ----------------------------------------------------------

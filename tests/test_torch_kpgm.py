@@ -232,13 +232,21 @@ def test_kpgm_sampler_rejects_and_shim(ref, tmp_path):
     import jax.numpy as jnp
 
     p = kpgm.KPGMParams(torch.from_numpy(_thetas(6, None)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KPGMSampler(SamplerConfig(params=p, backend="balldrop", mesh="auto", device="cpu"))
+    with pytest.raises(ValueError, match="unknown mesh spec"):
+        KPGMSampler(SamplerConfig(params=p, backend="balldrop", mesh="every", device="cpu"))
     with pytest.raises(TypeError):
         KPGMSampler(SamplerConfig(params=interop.from_reference(
             _thetas(6, None), np.zeros((4, 6), np.int8), np.zeros(2))[0], device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7b"):
-        KPGMSampler(SamplerConfig(params=p, mesh="auto", device="cpu"))
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.release()
+    try:  # a 1-rank gloo mesh session: the unsharded session's edges
+        meshed = KPGMSampler(SamplerConfig(params=p, mesh="auto", device="cpu"))
+        assert meshed.world == mesh_lib.SamplerWorld("gloo", 1, 0, True)
+        assert np.array_equal(meshed.sample(prng.PRNGKey(4)).edges,
+                              KPGMSampler(SamplerConfig(params=p, device="cpu")).sample(prng.PRNGKey(4)).edges)
+    finally:
+        mesh_lib.release()
     with pytest.raises(ValueError, match="no stream checkpoint"):  # resumable streams run (item 7)
         KPGMSampler(SamplerConfig(params=p, device="cpu")).resume_stream(str(tmp_path / "ckpt"))
     with pytest.warns(DeprecationWarning):

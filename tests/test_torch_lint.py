@@ -802,8 +802,6 @@ ABSENT_ROOTS = {
                              "segmented_unique runs eagerly",
     "boot_theta": "a closure the reference jits inside bootstrap_theta_se; the port computes the "
                   "bootstrap statistic inline",
-    "sample_edges_sharded": "core/distributed.py's sharded sampler: meshes wait for more than one card "
-                            "(ROADMAP item 7b)",
 }
 LAUNCH_STEPS = {"train_step", "prefill_step", "decode_step"}  # jitted by launch/train.py and launch/serve.py
 
@@ -825,4 +823,4 @@ def test_step_roots_match_the_reference_jit_roots(ref):
     assert len(roots) == 20
     assert roots - port_defs == set(ABSENT_ROOTS)
     assert set(STEP_ROOTS) == (roots & port_defs) | LAUNCH_STEPS
-    assert len(STEP_ROOTS) == len(set(STEP_ROOTS)) == 19
+    assert len(STEP_ROOTS) == len(set(STEP_ROOTS)) == 20

@@ -36,6 +36,7 @@ import torch
 from test_torch_reference import cuda_device, ref  # noqa: F401  (fixtures)
 
 from repro_torch.core import magm, prng
+from repro_torch.dist import hints
 from repro_torch.fit import magfit as mf
 from repro_torch.fit import recover as rc
 
@@ -104,8 +105,8 @@ def test_shard_edges_rejects_bad_input(ref):
             mf.shard_edges(bad, 48, device="cpu")
     with pytest.raises(ValueError, match="shard_size"):
         mf.shard_edges(np.array([[0, 1]]), 4, shard_size=-1, device="cpu")
-    with pytest.raises(NotImplementedError, match="7b"):
-        mf.shard_edges(np.array([[0, 1]]), 4, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="endpoints"):  # a mesh changes only the shard count
+        mf.shard_edges(np.array([[0, 4]]), 4, mesh=hints.MeshShape(("graphs",), (4,)), device="cpu")
 
 
 @pytest.mark.parametrize("init", [False, True], ids=["density", "init_params"])
@@ -486,8 +487,8 @@ def test_magfit_input_validation(ref):
         mf.magfit(np.array([[0, 1]]), 1 << 20, 12, device="cpu")
     with pytest.raises(ValueError, match="phi_init"):
         mf.magfit(edges, 32, 3, phi_init=np.zeros((32, 2)), options=mf.FitOptions(em_iters=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="7b"):
-        mf.magfit(edges, 32, 3, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="empty"):  # checked before the mesh rounds the shards
+        mf.magfit(np.zeros((0, 2), np.int64), 32, 3, mesh=hints.MeshShape(("graphs",), (4,)), device="cpu")
     with pytest.raises(ValueError, match="endpoints"):
         mf.magfit(np.array([[0, 40]]), 32, 3, device="cpu")
 

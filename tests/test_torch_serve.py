@@ -225,10 +225,25 @@ def test_cli_serves_on_the_cpu():
     assert "[serve] OK" in out.stdout and "'errors': 0" in out.stdout and "'completed': 3" in out.stdout
 
 
-# meshes name their item in both modes (every LM family is served: tests/test_torch_families_cli.py)
+# --mesh shards the graph session (a 1-rank gloo world here) and is refused
+# by the LM mode, which runs on one device (every LM family is served:
+# tests/test_torch_families_cli.py)
 @pytest.mark.parametrize(
-    "argv, item", [(["--magm", "--mesh"], "7b"), (["--arch", "mixtral-8x22b", "--smoke", "--device", "cpu", "--mesh"], "7b")]
+    "argv, item",
+    [(["--magm", "--mesh", "--device", "cpu", "--graph-d", "6", "--requests", "2", "--chunk-edges", "64"], None),
+     (["--arch", "mixtral-8x22b", "--smoke", "--device", "cpu", "--mesh"], "--magm")],
 )
-def test_cli_unported_modes_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(argv)
+def test_cli_unported_modes_raise(argv, item, capsys):
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.release()
+    try:
+        if item is None:
+            serve.main(argv)
+            out = capsys.readouterr().out
+            assert "world=SamplerWorld(backend='gloo', size=1" in out and "[serve] OK" in out and "'errors': 0" in out
+        else:
+            with pytest.raises(ValueError, match=item):
+                serve.main(argv)
+    finally:
+        mesh_lib.release()

@@ -154,26 +154,38 @@ def test_default_device_raises_without_card(monkeypatch):
     ids=["balldrop", "split", "mesh"],
 )
 def test_unported_session_paths_raise(change):
-    p = interop.from_reference(
-        np.broadcast_to(magm_paper.THETA_1, (5, 2, 2)), np.zeros((8, 5), np.int8), np.zeros(2)
-    )[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MAGMSampler(SamplerConfig(params=p, num_nodes=32, device="cpu", **change))
+    """Every path runs on a mesh (a 1-rank gloo world here) to the
+    unsharded session's edges; tests/test_torch_mesh.py holds 4 ranks."""
+    from repro_torch.core import magm
+    from repro_torch.launch import mesh as mesh_lib
+
+    p = magm.make_params(magm_paper.THETA_1, 0.5, 5)
+    plain = {k: v for k, v in change.items() if k != "mesh"}
+    want = MAGMSampler(SamplerConfig(params=p, num_nodes=32, device="cpu", **plain)).sample(prng.PRNGKey(2)).edges
+    mesh_lib.release()
+    try:
+        s = MAGMSampler(SamplerConfig(params=p, num_nodes=32, device="cpu", **change))
+        assert s.world.backend == "gloo" and s.mesh.mesh_dim_names == ("graphs",)
+        assert np.array_equal(s.sample(prng.PRNGKey(2)).edges, want) and want.shape[0] > 0
+    finally:
+        mesh_lib.release()
 
 
 def test_unported_run_paths_raise(tmp_path):
-    """Meshes (ROADMAP queue 1 item 7b) still raise; resumable streams
-    (item 7) run: tests/test_torch_resilience.py holds them against the
-    reference."""
+    """A mesh with no graph axis runs the unsharded program, an unknown
+    mesh spec raises; resumable streams (item 7) run:
+    tests/test_torch_resilience.py holds them against the reference."""
+    from repro_torch.dist import hints
+
     p = interop.from_reference(
         np.broadcast_to(magm_paper.THETA_1, (5, 2, 2)), np.zeros((8, 5), np.int8), np.zeros(2)
     )[0]
     s = MAGMSampler(SamplerConfig(params=p, num_nodes=32, device="cpu"))
     key = prng.PRNGKey(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7b"):
-        quilt.quilt_run(key, s.plan, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7b"):
-        MAGMSampler(SamplerConfig(params=p, num_nodes=32, device="cpu", mesh="auto"))
+    model_only = hints.MeshShape(("model",), (2,))
+    assert np.array_equal(quilt.quilt_run(key, s.plan, mesh=model_only).edges(), quilt.quilt_run(key, s.plan).edges())
+    with pytest.raises(ValueError, match="unknown mesh spec"):
+        MAGMSampler(SamplerConfig(params=p, num_nodes=32, device="cpu", mesh="everywhere"))
     from repro_torch.core import magm
 
     s = MAGMSampler(SamplerConfig(params=magm.make_params(magm_paper.THETA_1, 0.5, 5), num_nodes=32, device="cpu"))

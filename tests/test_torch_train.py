@@ -22,7 +22,8 @@ on the CPU at the smoke configs:
 - ``analysis.roofline.train_step_bound_ms``;
 - ``launch.train`` on ``--device cpu``: its per-step losses held to the
   reference CLI's within 2e-3 (bf16 model), its three lines, the default
-  device raising without a card and ``--mesh production`` naming item 7b.
+  device raising without a card and ``--mesh production`` refusing a
+  world of other than 256 ranks.
 """
 
 from __future__ import annotations
@@ -373,5 +374,5 @@ def test_train_cli_default_device_raises_without_a_card(monkeypatch):
 
 
 def test_train_cli_production_mesh_names_7b():
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    with pytest.raises(ValueError, match="needs a world of 256 ranks"):
         train_cli.main(["--device", "cpu", "--smoke", "--mesh", "production"])
