@@ -190,7 +190,10 @@ step's bound, peak memory, the batch-0 loss falling.
 
 builds the kernels and checks the multi-chip dry-run (launch/dryrun.py):
 (a) the ten archs' rows at decode_32k on the 16x16 fake mesh (modelled
-at the data sheet's peaks, logged); (b) the 1-device dry-run of full
+at the data sheet's peaks, logged); (a') olmo-1b's train_4k on 16x16
+and 2x16x16 and its decode_32k on 2x16x16 (DRYRUN_PRODUCTION), each a
+gate, so that the card host's torch traces the production cells; (b) the
+1-device dry-run of full
 olmo-1b at the full run's train 8 x 128 and decode batch 4 against the
 same steps on the card: the traced FLOPs equal, the predicted peak above
 the step's inputs within DRYRUN_PEAK_REL of the max_memory_allocated
@@ -2350,23 +2353,27 @@ def fit_bench(device) -> dict:
     return {}
 
 
-def fit_claim(device) -> dict:
-    """Gate 4, the reference's recovery claim (TestRecovery, key 0): a
+def fit_claim(device, keys=(0,)) -> dict:
+    """Gate 4, the reference's recovery claim (TestRecovery, its fit keys
+    0, 1, 2; the full run takes key 0, ``--fit`` all three): for each key a
     known-F fit of an exact graph at n = 2^12, d = 5, order 4, 6 EM
     iterations; every canonical theta within 3 sigma of the truth,
     sigma = sqrt(SE^2 + 0.002^2) from 24 bootstrap replicates."""
     log2_n, d = FIT_CLAIM
     params = magm.make_params(THETA_FIT, 0.5, d)
-    t = time.perf_counter()
-    rep = fit_recover.recover(params, 1 << log2_n, key=prng.PRNGKey(0), options=magfit.FitOptions(order=4, em_iters=6),
-                              known_F=True, exact_observed=True, num_boot=24, device=device)
-    secs = time.perf_counter() - t
     truth = fit_recover.canonicalize(params.thetas, params.mu)[0]
-    z = np.abs(rep.theta_hat - truth) / np.sqrt(rep.theta_se**2 + FIT_CLAIM_TOL**2)
-    if not (np.all(np.diff(rep.fit.elbo_trace) >= 0) and z.max() < 3.0):
-        raise AssertionError(f"recovery claim: max z {z.max()} trace {rep.fit.elbo_trace}")
-    log(f"recovery claim n=2^{log2_n} d={d}: edges={rep.edges.shape[0]} max_z={z.max()} "
-        f"iterations={rep.fit.iterations} converged={rep.fit.converged} se_max={rep.theta_se.max()} seconds={secs}")
+    for key in keys:
+        t = time.perf_counter()
+        rep = fit_recover.recover(params, 1 << log2_n, key=prng.PRNGKey(key),
+                                  options=magfit.FitOptions(order=4, em_iters=6), known_F=True, exact_observed=True,
+                                  num_boot=24, device=device)
+        secs = time.perf_counter() - t
+        z = np.abs(rep.theta_hat - truth) / np.sqrt(rep.theta_se**2 + FIT_CLAIM_TOL**2)
+        if not (np.all(np.diff(rep.fit.elbo_trace) >= 0) and z.max() < 3.0):
+            raise AssertionError(f"recovery claim, key {key}: max z {z.max()} trace {rep.fit.elbo_trace}")
+        log(f"recovery claim n=2^{log2_n} d={d} key={key}: edges={rep.edges.shape[0]} max_z={z.max()} "
+            f"iterations={rep.fit.iterations} converged={rep.fit.converged} se_max={rep.theta_se.max()} "
+            f"seconds={secs}")
     return {}  # exact_observed: the host sampler, no kernel
 
 
@@ -2482,12 +2489,13 @@ def fit_at_cap(device) -> dict:
     return {"quilt_prng_descent_lookup": launches}
 
 
-def phase_magfit(device) -> dict:
-    """MAGFIT on the card, gates 1-6 (each function's docstring); returns
-    this phase's kernel launches (each part returns its own) and logs each
-    part's seconds."""
+def phase_magfit(device, claim_keys=(0,)) -> dict:
+    """MAGFIT on the card, gates 1-6 (each function's docstring), the
+    recovery claim at ``claim_keys``; returns this phase's kernel launches
+    (each part returns its own) and logs each part's seconds."""
     secs, launches = {}, {"quilt_prng_descent_lookup": 0, "magm_logprob": 0}
-    for name, fn in (("cross_device", fit_cross_device), ("bench", fit_bench), ("claim", fit_claim),
+    for name, fn in (("cross_device", fit_cross_device), ("bench", fit_bench),
+                     ("claim", lambda dev: fit_claim(dev, claim_keys)),
                      ("round_trip", fit_round_trip), ("cap", fit_at_cap)):
         t = time.perf_counter()
         for kernel, count in fn(device).items():
@@ -3333,6 +3341,9 @@ DRYRUN_CHECK = {  # olmo-1b's steps of phase_train and phase_lm, on the 1-device
     "train_8x128": ShapeConfig("train_8x128", TRAIN_SEQ, TRAIN_BATCH, "train"),
     "decode_4x48": ShapeConfig("decode_4x48", LM_PROMPT + LM_GEN, LM_BATCH, "decode"),
 }
+# the production cells --dryrun also traces on the card host's torch: the
+# embedding's gather failed there on both meshes before it went vocab-parallel
+DRYRUN_PRODUCTION = (("train_4k", False), ("train_4k", True), ("decode_32k", True))
 DRYRUN_PEAK_REL = 0.15  # predicted peak bytes above the step's inputs vs the card's delta
 DRYRUN_REPS = 5
 
@@ -3352,6 +3363,23 @@ def dryrun_rows() -> list:
             raise AssertionError(f"dry-run {arch} x {DRYRUN_SHAPE} x 16x16 failed: {rec['error']}")
         rows.append(rec)
     log(f"dryrun rows seconds={time.perf_counter() - t}")
+    return rows
+
+
+def dryrun_production() -> list:
+    """(a') olmo-1b's DRYRUN_PRODUCTION cells on the 16x16 / 2x16x16 fake
+    meshes, on this host's torch; a failed cell fails the phase."""
+    from repro_torch.launch import dryrun
+
+    rows = []
+    t = time.perf_counter()
+    for shape, multi_pod in DRYRUN_PRODUCTION:
+        rec = dryrun.run_cell("olmo_1b", shape, multi_pod=multi_pod)
+        log(f"dryrun production cell: {json.dumps(rec)}")
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run olmo_1b x {shape} x {rec['mesh']} {rec['status']}: {rec.get('error')}")
+        rows.append(rec)
+    log(f"dryrun production cells seconds={time.perf_counter() - t}")
     return rows
 
 
@@ -3457,12 +3485,14 @@ def dryrun_collective(device) -> dict:
 
 
 def phase_dryrun(device) -> dict:
-    """``--dryrun``: (a) the rows, (b) the card checks, (c) the collective."""
+    """``--dryrun``: (a) the rows, (a') olmo-1b's production cells, (b) the
+    card checks, (c) the collective."""
     from repro_torch.launch import mesh as mesh_lib
 
     t = time.perf_counter()
     try:
         rows = dryrun_rows()
+        production = dryrun_production()
         model = lm_model.build(lm_configs.get("olmo_1b"))
         params = model.init(prng.PRNGKey(SEED), device=device)
         checks = {k: dryrun_card_check(device, model, params, s) for k, s in DRYRUN_CHECK.items()}
@@ -3472,7 +3502,7 @@ def phase_dryrun(device) -> dict:
         mesh_lib.release()
     coll = dryrun_collective(device)
     log(f"dryrun seconds={time.perf_counter() - t}")
-    return {"rows": rows, "checks": checks, "collective": coll}
+    return {"rows": rows, "production": production, "checks": checks, "collective": coll}
 
 
 LINT_STEP_RULES = {"host-sync-in-step", "dynamic-shape-in-step"}
@@ -3893,7 +3923,7 @@ def main(argv) -> int:
         return 0
     if argv == ["--fit"]:
         t = time.perf_counter()
-        fit = phase_magfit(device)
+        fit = phase_magfit(device, claim_keys=(0, 1, 2))
         log(f"magfit seconds={time.perf_counter() - t}")
         log(nvidia_smi())
         log(json.dumps({"magfit": fit}))
@@ -3929,9 +3959,10 @@ def main(argv) -> int:
     if argv == ["--dryrun"]:
         dr = phase_dryrun(device)
         log(nvidia_smi())
-        log(json.dumps({"dryrun": {"rows": [{k: r.get(k) for k in ("arch", "shape", "mesh", "status", "bottleneck",
-                                                                     "t_step_s", "t_ideal_s", "peak_bytes_per_chip")}
-                                            for r in dr["rows"]],
+        row_keys = ("arch", "shape", "mesh", "status", "bottleneck", "t_step_s", "t_ideal_s", "peak_bytes_per_chip")
+        log(json.dumps({"dryrun": {"rows": [{k: r.get(k) for k in row_keys} for r in dr["rows"]],
+                                   "production": [{k: r.get(k) for k in row_keys + ("coll_breakdown",)}
+                                                  for r in dr["production"]],
                                    "checks": dr["checks"], "collective": dr["collective"]}}))
         return 0
     if argv == ["--lint"]:

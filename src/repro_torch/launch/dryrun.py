@@ -3,6 +3,7 @@ production mesh and record its per-device cost and roofline terms (the
 reference's ``repro.launch.dryrun`` in PyTorch).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b --both-meshes   # its 8 cells
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes --out /tmp/dryrun.json
 
 Where the reference compiles on 512 fake XLA host devices and reads the
@@ -23,10 +24,12 @@ SPMD-partitioned HLO, a cell here runs one step of the port on DTensors:
 Plain tensors that the model makes (masks, positions) count as replicated
 (DTensor's implicit replication).  Attention, the SSM scans and the MoE
 experts run on each rank's shards (``hints.local_map``, the counterpart
-of ``shard_map``); every other op of the six families' steps (the MoE's
-sort, top-k and gathers among them) has a DTensor sharding strategy, so
-nothing is replicated around an op by hand: an op without one ends its
-cell ``failed`` with the op named.
+of ``shard_map``), and so do the ops whose DTensor strategy some torch
+release lacks or refuses on these meshes (the embedding's gather, the
+SSM conv, the sequence-parallel attention's output product); every other
+op of the six families' steps (the MoE's sort, top-k and gathers among
+them) has a DTensor sharding strategy, so nothing is replicated around an
+op by hand: an op without one ends its cell ``failed`` with the op named.
 
 DTensor on a "cpu" mesh replaces an all-to-all by an all-gather and a
 chunk (gloo has no all-to-all), so a Shard(i) -> Shard(j) reshard counts
@@ -256,7 +259,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, mesh=None) -> Dict[
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, help="arch id (assignment spelling ok)")
-    ap.add_argument("--shape", default=None, choices=[s.name for s in configs.SHAPES])
+    ap.add_argument("--shape", default=None, choices=[s.name for s in configs.SHAPES],
+                    help="one shape (default: every shape of --arch)")
     ap.add_argument("--all", action="store_true", help="run every cell")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
@@ -265,13 +269,13 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    cells = []
     if args.all:
         cells = [(a, s.name) for a in configs.ARCHS for s in configs.SHAPES]
+    elif args.arch:
+        shapes = [args.shape] if args.shape else [s.name for s in configs.SHAPES]
+        cells = [(configs.ALIASES.get(args.arch, args.arch), s) for s in shapes]
     else:
-        if not args.arch or not args.shape:
-            ap.error("--arch and --shape required unless --all")
-        cells.append((configs.ALIASES.get(args.arch, args.arch), args.shape))
+        ap.error("--arch required unless --all")
 
     torch.set_num_threads(1)
     records = []

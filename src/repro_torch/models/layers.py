@@ -309,8 +309,26 @@ def apply_attention(
 
     out = chunked_attention(q, kproj, vproj, causal=causal and not is_cross,
                             window=0 if is_cross else cfg.sliding_window)
+    out = out.reshape(b, s, h * hd)
+    if is_dtensor(out) and not _tp_splits(h):
+        # wo replicated, out sharded over batch and (sequence-parallel)
+        # sequence: a product per shard, as torch 2.11's DTensor refuses to
+        # flatten the two sharded dims
+        return shard(_rows_matmul(out, wo), "batch"), (kproj, vproj)
     # the row-parallel product reduced where it is made (in its dtype)
-    return shard(out.reshape(b, s, h * hd) @ wo, "batch"), (kproj, vproj)
+    return shard(out @ wo, "batch"), (kproj, vproj)
+
+
+def _rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a DTensor ``x`` (B, S, K) whose leading dims may be
+    sharded (on several mesh dims) and a replicated ``w`` (K, N), on each
+    rank's rows; ``w``'s gradient is Partial() over the rows' mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    x_pl = tuple(Replicate() if p.is_partial() or p.is_shard(x.ndim - 1) else p for p in x.placements)
+    w_pl = (Replicate(),) * len(x_pl)
+    w_grad = tuple(Partial() if p.is_shard() else Replicate() for p in x_pl)
+    return local_map(torch.matmul, (x, w), (x_pl, w_pl), x_pl, grad_placements=(None, w_grad))
 
 
 def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, valid_len: int) -> torch.Tensor:

@@ -99,8 +99,13 @@ class Model:
             if w >= s:  # dense cache: pad the prefix K/V out to capacity
                 pad = torch.zeros_like(k[..., :1, :, :]).expand(*k.shape[:-3], w - s, *k.shape[-2:])
                 return torch.cat([k, pad], dim=-3)
-            # sliding window: the last w positions, ring-ordered (position p in slot p % w)
-            return torch.roll(k[..., s - w :, :, :], (s - w) % w, dims=-3)
+            # sliding window: the last w positions, ring-ordered (position p in
+            # slot p % w): a roll as two slices (torch 2.11's DTensor has no
+            # strategy for aten.roll)
+            last, shift = k[..., s - w :, :, :], (s - w) % w
+            if shift == 0:
+                return last.clone(memory_format=torch.contiguous_format)
+            return torch.cat([last[..., w - shift :, :, :], last[..., : w - shift, :, :]], dim=-3)
 
         if cfg.family in ("dense", "moe", "vlm", "audio"):  # the vlm's pieces are its self layers'
             cache = {"k": ring(pieces[0]), "v": ring(pieces[1])}

@@ -42,13 +42,34 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over seq: x (B, S, C), w (K, C), b (C)."""
+    """Depthwise causal conv over seq: x (B, S, C), w (K, C), b (C).  A
+    DTensor ``x`` is convolved on each rank's (batch, channel) shard
+    (``local_map``): torch 2.11's DTensor fails in ``F.pad``'s strategy on
+    a (Shard(0), Shard(2)) input."""
+    if is_dtensor(x):
+        return _causal_conv_sharded(x, w, b)
     k, s = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = xp[:, 0:s] * w[0]
     for i in range(1, k):
         out = out + xp[:, i : i + s] * w[i]
     return out + b
+
+
+def _causal_conv_sharded(x, w, b) -> torch.Tensor:
+    """:func:`_causal_conv` per shard: the sequence gathered, the batch kept,
+    the weights cut to x's channel shards; their gradients are Partial()
+    over the batch's mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    x_pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in x.placements)
+
+    def weight(dim):
+        return (tuple(Shard(dim) if p.is_shard(2) else Replicate() for p in x_pl),
+                tuple(Shard(dim) if p.is_shard(2) else Partial() if p.is_shard(0) else Replicate() for p in x_pl))
+
+    (w_pl, w_grad), (b_pl, b_grad) = weight(1), weight(0)
+    return local_map(_causal_conv, (x, w, b), (x_pl, w_pl, b_pl), x_pl, grad_placements=(None, w_grad, b_grad))
 
 
 def _conv_step(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

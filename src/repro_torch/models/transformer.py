@@ -27,6 +27,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.dist.hints import shard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models.embed import embed
 
 Params = Dict[str, Any]
 
@@ -312,7 +313,7 @@ def forward(
       hybrid : [ k mamba2 layers | shared (weight-tied) attention block ] x n_seg
     """
     b, s_len = tokens.shape
-    x = shard(params["embed"][tokens], "batch", None, None)
+    x = shard(embed(params["embed"], tokens), "batch", None, None)
     positions = _positions(b, s_len, x.device)
     if cfg.family == "audio":
         context = _encode_audio(params, cfg, context)
@@ -388,7 +389,7 @@ def decode_step(
     the returned dict holds the same tensors (for the vlm, views of its
     self layers' K/V, as the reference returns the n_self entries)."""
     b = tokens.shape[0]
-    x = params["embed"][tokens]
+    x = shard(embed(params["embed"], tokens), "batch", None, None)
     positions = torch.full((b, 1), int(cache_len), dtype=torch.int32, device=x.device)  # lint: disable=host-sync-in-step -- cache_len is the serve loop's host int
     if cfg.family == "audio":
         context = cache["enc_out"]

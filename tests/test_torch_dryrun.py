@@ -7,8 +7,8 @@
   device's FLOPs are its shards', and the only collective is the
   all-reduce of its (B/2, D) partial output;
 - smoke-config cells of each family (dense, moe, ssm, hybrid, vlm, audio)
-  x {train, prefill, decode} end ``ok`` on a 2x2 fake mesh, at small
-  shapes;
+  x {train, prefill, decode} end ``ok`` on a 2x2 fake mesh and on a 2x2x2
+  ``(pod, data, model)`` one, at small shapes;
 - a smoke dense train step's per-device FLOPs on one device against the
   reference's ``hlo_cost.analyze`` of its compiled 1-device module: the
   port counts exactly 2 b s^2 (h hd) more per layer, one score-sized
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -90,16 +91,28 @@ def test_megatron_mlp_collectives():
                                "all-to-all": 0, "collective-permute": 0}
 
 
-@pytest.mark.parametrize("kind", list(SMALL))
-@pytest.mark.parametrize("family", list(FAMILIES))
-def test_smoke_cells_on_2x2(family, kind):
-    rec = dryrun.lower_cell(FAMILIES[family], SMALL[kind], mesh=((2, 2), ("data", "model")), smoke=True,
-                            verbose=False)
-    assert rec["status"] == "ok" and rec["chips"] == 4 and rec["mesh"] == "2x2"
+def _smoke_cell_ok(family: str, kind: str, sizes, names) -> None:
+    rec = dryrun.lower_cell(FAMILIES[family], SMALL[kind], mesh=(sizes, names), smoke=True, verbose=False)
+    assert rec["status"] == "ok" and rec["chips"] == math.prod(sizes) and rec["mesh"] == "x".join(map(str, sizes))
     assert rec["hlo_gflops_per_chip"] > 0 and rec["hlo_gbytes_per_chip"] > 0
     assert rec["peak_bytes_per_chip"] >= rec["arg_bytes_per_chip"] > 0
     assert set(rec["coll_breakdown"]) == set(roofline.KINDS) and rec["coll_gbytes_per_chip"] > 0
     assert rec["t_step_s"] >= rec["t_ideal_s"] and rec["bottleneck"] in ("compute", "memory", "collective")
+
+
+@pytest.mark.parametrize("kind", list(SMALL))
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_smoke_cells_on_2x2(family, kind):
+    _smoke_cell_ok(family, kind, (2, 2), ("data", "model"))
+
+
+@pytest.mark.parametrize("kind", list(SMALL))
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_smoke_cells_on_2x2x2(family, kind):
+    """The multi-pod mesh's axes at size 2: the batch over both ``pod`` and
+    ``data`` (the placements torch 2.11's DTensor refused for the
+    embedding's gather), the vocab over ``model``."""
+    _smoke_cell_ok(family, kind, (2, 2, 2), ("pod", "data", "model"))
 
 
 def test_dense_train_flops_match_reference_hlo(ref):

@@ -314,6 +314,68 @@ def test_recover_bootstrap_se_scale_sane():
                                atol=0.1)
 
 
+D3 = dict(n=1 << 10, d=3, key=20, boot=8, opts=dict(order=3, em_iters=2))
+
+
+def _d3_reports(ref, theta=THETA):
+    """The reference's and the port's ``recover`` at D3 (the inputs of
+    ``test_recover_bootstrap_se_scale_sane``), and the seed their
+    bootstraps draw from ``recover``'s fourth key."""
+    import jax
+
+    n, d, key, boot = D3["n"], D3["d"], D3["key"], D3["boot"]
+    want = ref.recover.recover(ref.magm.make_params(theta, 0.5, d), n, key=jax.random.PRNGKey(key),
+                               options=ref.magfit.FitOptions(**D3["opts"]), known_F=True, exact_observed=True,
+                               num_boot=boot)
+    got = rc.recover(magm.make_params(theta, 0.5, d), n, key=prng.PRNGKey(key), options=mf.FitOptions(**D3["opts"]),
+                     known_F=True, exact_observed=True, num_boot=boot, device="cpu")
+    seed = int(prng.randint(prng.split(prng.PRNGKey(key), 4)[3], (), 0, 2**31 - 1))
+    return want, got, seed
+
+
+def _max_z(rep, theta) -> float:
+    """The recovery claim's statistic (``TestRecovery``): the largest
+    |theta_hat - truth| / sqrt(SE^2 + 0.002^2) over the canonical entries."""
+    d = rep.theta_hat.shape[0]
+    truth = rc.canonicalize(theta[None].repeat(d, 0), np.full(d, 0.5))[0]
+    return float((np.abs(rep.theta_hat - truth) / np.sqrt(rep.theta_se**2 + 2e-3**2)).max())
+
+
+def test_recover_at_d3_against_the_reference(ref):
+    """``test_recover_bootstrap_se_scale_sane``'s inputs (n = 2^10, d = 3,
+    key 20, order 3, 2 EM iterations, 8 bootstrap replicates) through the
+    reference's ``recover`` and the port's: the observed edges bit for
+    bit, the trace and ``theta_hat`` to the known-F tolerances (trace
+    ``rtol=3e-5``, thetas ``atol=3e-2``), ``theta_se`` to the bootstrap's
+    ``rtol=1e-3`` with both packages bootstrapping the same fit, plus
+    ``atol=3e-5``: at n = 2^10 a replicate's canonical thetas differ
+    between the packages by up to ~2e-5 (float32 statistics summed in
+    another order), and a standard deviation moves by at most its
+    replicates' largest move times sqrt(8 / 7).  The two fits differ by
+    float noise, and that alone can move a canonical SE by tens of percent
+    here: the three attributes share one truth, so replicates sort
+    near-tied attributes either way.  The reference misses the 3-sigma
+    claim at this setting with its own SEs, as the port does: the miss is
+    the model's (TestRecovery's note on d <= 3), not the port's.  Run this
+    file as a script for the measured distances."""
+    import jax.numpy as jnp
+
+    want, got, seed = _d3_reports(ref)
+    boot = D3["boot"]
+    assert np.array_equal(got.edges, want.edges)
+    np.testing.assert_allclose(got.fit.elbo_trace, want.fit.elbo_trace, rtol=3e-5)
+    np.testing.assert_allclose(got.theta_hat, want.theta_hat, atol=3e-2)
+    port_of_ref = rc.bootstrap_theta_se(interop.fit_from_reference(want.fit), want.edges, num_boot=boot, seed=seed,
+                                        device="cpu")
+    np.testing.assert_allclose(port_of_ref, want.theta_se, rtol=1e-3, atol=3e-5)
+    back = interop.fit_to_reference(got.fit)
+    th, mu = back.pop("params")
+    rfit = ref.magfit.FitResult(params=ref.magm.MAGMParams(jnp.asarray(th), jnp.asarray(mu)), **back)
+    np.testing.assert_allclose(got.theta_se, ref.recover.bootstrap_theta_se(rfit, got.edges, num_boot=boot, seed=seed),
+                               rtol=1e-3, atol=3e-5)
+    assert _max_z(want, THETA) > 3.0, "the reference meets the 3-sigma claim at d = 3: the port's miss needs a look"
+
+
 def test_fit_config_packages_a_fit():
     edges = rc.exact_edges(magm.make_params(THETA, 0.5, 3),
                            magm.sample_attributes(prng.PRNGKey(2), 64, magm.make_params(THETA, 0.5, 3).mu,
@@ -369,3 +431,22 @@ def test_cuda_round_trip_matches_cpu(cuda_device):
     ops.reset_kernel_launches()
     gs = api.MAGMSampler(gpu.config).sample(prng.PRNGKey(4))
     assert ops.kernel_launches()["quilt_prng_descent_lookup"] >= 1 and gs.num_edges > 0
+
+
+def _measure() -> None:
+    """The D3 comparison's numbers, for both thetas of this file."""
+    from test_torch_reference import reference_package
+
+    torch.set_num_threads(1)
+    with reference_package() as ref:
+        for name, theta in (("THETA", THETA), ("THETA_FIT", THETA_FIT)):
+            want, got, _ = _d3_reports(ref, theta)
+            se_rel = np.abs(got.theta_se - want.theta_se) / want.theta_se
+            print(f"{name}: max z reference {_max_z(want, theta):.3f} port {_max_z(got, theta):.3f}; "
+                  f"|theta_hat diff| {np.abs(got.theta_hat - want.theta_hat).max():.3g}; "
+                  f"theta_se relative diff up to {se_rel.max():.3f}")
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_fit_recover.py
+    _measure()
