@@ -1072,7 +1072,9 @@ def profiled_call(fn) -> tuple:
     copies, fills).  A CPU op's device time repeats that of the kernels it
     launched, so the sum over every event, the measure of earlier runs,
     counts most of the busy time twice; it is logged beside, as
-    ``all_events_ms``."""
+    ``all_events_ms``.  The program's spans (``obs.span``) also appear as
+    device-side user annotations as long as their range: those are no
+    device work, and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1084,7 +1086,7 @@ def profiled_call(fn) -> tuple:
             out = fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-    ev = prof.key_averages()
+    ev = [e for e in prof.key_averages() if not e.is_user_annotation]
     device = [e for e in ev if e.device_type != DeviceType.CPU]
     busy = sum(e.self_device_time_total for e in device) / 1e3
     log(f"profiler: device events {busy} ms, all_events_ms={sum(e.self_device_time_total for e in ev) / 1e3}")
@@ -1114,7 +1116,9 @@ def check_edges(e: np.ndarray, n: int, what: str) -> None:
 
 
 def counters_delta(before: dict) -> dict:
-    return {k: v - before[k] for k, v in quilt.DISPATCH_COUNTERS.items()}
+    """The round counters' and the drawn and kept rows' growth since
+    ``before`` (the span totals of the same registry are left out)."""
+    return {k: quilt.DISPATCH_COUNTERS[k] - before[k] for k in (*quilt.ROUND_COUNTERS, "candidates", "edges_out")}
 
 
 def phase_host_session(device) -> dict:
@@ -3601,7 +3605,8 @@ def htod_copies(fn) -> tuple:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CPU]
+    device = [e for e in prof.events()
+              if e.device_type != torch.autograd.DeviceType.CPU and not e.is_user_annotation]
     kinds = collections.Counter(e.name for e in device if e.name.startswith("Memcpy"))
     copies = sum(n for k, n in kinds.items() if k.startswith("Memcpy HtoD"))
     return out, {"count": copies, "device_events": len(device), "memcpy_kinds": dict(kinds)}

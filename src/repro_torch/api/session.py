@@ -34,6 +34,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api import stream as _stream
 from repro_torch.api.config import SamplerConfig
 from repro_torch.api.result import GraphSample, KPGMStats
@@ -217,6 +218,7 @@ class MAGMSampler(_Session):
             backend=c.backend, use_kernel=c.use_kernel, mesh=self.mesh,
         )
 
+    @obs.span("session.sample", host_result=True)
     def sample(self, key: Optional[torch.Tensor] = None) -> GraphSample:
         """Draw one MAGM graph; ``key=None`` consumes the session's stream."""
         key = self._next_key() if key is None else key
@@ -265,6 +267,7 @@ class MAGMSampler(_Session):
         else:
             yield from self._checkpointed_stream(key, chunk_edges, checkpoint_dir)
 
+    @obs.span("session.sample_batch", host_result=True)
     def sample_batch(self, num_graphs: int, key: Optional[torch.Tensor] = None) -> List[GraphSample]:
         """``num_graphs`` independent MAGM graphs.  Without the split they
         share fused rounds; members of a fused batch carry ``key=None``, as
@@ -348,6 +351,7 @@ class KPGMSampler(_Session):
         except quilt.DeviceBatchUnavailable:
             return None
 
+    @obs.span("session.sample", host_result=True)
     def sample(self, key: Optional[torch.Tensor] = None, *, num_edges: Optional[int] = None) -> GraphSample:
         """Draw one KPGM graph (``num_edges`` overrides the X ~ N(m, m - v)
         draw); ``key=None`` consumes the session's stream."""
@@ -393,6 +397,7 @@ class KPGMSampler(_Session):
         else:
             yield from self._checkpointed_stream(key, chunk_edges, checkpoint_dir, num_edges=num_edges)
 
+    @obs.span("session.sample_batch", host_result=True)
     def sample_batch(self, num_graphs: int, key: Optional[torch.Tensor] = None) -> List[GraphSample]:
         """``num_graphs`` independent KPGM graphs through shared fused
         rounds (members carry ``key=None``), or the host loop once per

@@ -74,6 +74,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.core import dedup, f32math, kpgm, kron, magm, partition, prng
 from repro_torch.core.device import resolve_device
 from repro_torch.dist import chaos
@@ -144,15 +145,20 @@ _CACHE_MAX = 8
 # (max_rounds or the candidate cap) short of their targets; exact_fallbacks:
 # runs that asked for the exact-cell mode and could not take it;
 # mesh_degrades: dispatch-time rank losses recovered by rebuilding the mesh
-# over the survivors
-DISPATCH_COUNTERS = {
-    "device_rounds": 0,
-    "device_topup_rounds": 0,
-    "host_topup_rounds": 0,
-    "mesh_degrades": 0,
-    "degraded_fallbacks": 0,
-    "exact_fallbacks": 0,
-}
+# over the survivors.  These are the reference's keys; the dict is the
+# port's one registry (``obs.COUNTERS``), which also holds the candidates
+# drawn, the edges handed to the host and, once tracing has been on, the
+# spans' totals
+ROUND_COUNTERS = (
+    "device_rounds",
+    "device_topup_rounds",
+    "host_topup_rounds",
+    "mesh_degrades",
+    "degraded_fallbacks",
+    "exact_fallbacks",
+)
+DISPATCH_COUNTERS = obs.COUNTERS
+DISPATCH_COUNTERS.update(dict.fromkeys(ROUND_COUNTERS, 0))
 
 # the uniform of the acceptance test comes from the top 24 of 64 hash bits
 _TWO_M24 = 2.0**-24
@@ -348,6 +354,7 @@ def _lsr64(x: torch.Tensor, k: int) -> torch.Tensor:
     return (x >> k) & ((1 << (64 - k)) - 1)
 
 
+@obs.span("engine.accept_hash")
 def _accept_u01(salt: torch.Tensor, gid: torch.Tensor, cell: torch.Tensor) -> torch.Tensor:
     """float32 uniform in [0, 1) per (salt, graph, cell): a splitmix64
     finalizer over the packed ids, in int64 arithmetic that wraps mod 2^64.
@@ -360,6 +367,7 @@ def _accept_u01(salt: torch.Tensor, gid: torch.Tensor, cell: torch.Tensor) -> to
     return _lsr64(x, 40).to(torch.float32) * _TWO_M24
 
 
+@obs.span("engine.salt")
 def accept_salt(rkey: torch.Tensor, device) -> torch.Tensor:
     """The round's acceptance salt: 64 bits of ``fold_in(rkey, 0x5EED)``,
     drawn where the key lives and filled in on ``device`` (no host -> device
@@ -368,6 +376,7 @@ def accept_salt(rkey: torch.Tensor, device) -> torch.Tensor:
     return torch.full((), salt, dtype=torch.int64, device=device)
 
 
+@obs.span("engine.alpha")
 def _exact_alpha(
     scfg: torch.Tensor, dcfg: torch.Tensor, thetas: torch.Tensor, budget: int, log_extra: float = 0.0
 ) -> torch.Tensor:
@@ -408,6 +417,7 @@ def _exact_cell_valid(
     return _accept_u01(salt, gid, cell) < _exact_alpha(scfg, dcfg, thetas, budget, log_extra)
 
 
+@obs.span("engine.round")
 def _round_body(
     rkey: torch.Tensor,
     gids: torch.Tensor,
@@ -433,10 +443,11 @@ def _round_body(
         if use_kernel
         else ops.quilt_prng_descent_lookup_plain
     )
-    scfg, dcfg, snode, dnode = lookup(
-        seed, gids, plan.cum, plan.table_cfg, plan.table_node,
-        a_tot=a_tot, num_blocks=plan.B,
-    )
+    with obs.span("kernels.lookup"):
+        scfg, dcfg, snode, dnode = lookup(
+            seed, gids, plan.cum, plan.table_cfg, plan.table_node,
+            a_tot=a_tot, num_blocks=plan.B,
+        )
     dev = gids.device
     local = torch.arange(gc * a_tot, dtype=torch.int64, device=dev) // a_tot
     cum_asks = torch.arange(1, gc + 1, dtype=torch.int64, device=dev) * a_tot
@@ -451,10 +462,17 @@ def _round_body(
                 plan.thetas, budget,
             )
         )
-    take, counts = dedup.segmented_unique_mask(
-        local, scfg, dcfg, cum_asks, targets, node_bits=plan.d, valid=valid
-    )
+    with obs.span("engine.dedup"):
+        take, counts = dedup.segmented_unique_mask(
+            local, scfg, dcfg, cum_asks, targets, node_bits=plan.d, valid=valid
+        )
     return scfg, dcfg, snode, dnode, take, counts
+
+
+def _handed(edges: np.ndarray) -> np.ndarray:
+    """``edges``, counted as handed to the host (``edges_out``)."""
+    DISPATCH_COUNTERS["edges_out"] += edges.shape[0]
+    return edges
 
 
 class DeviceBatchUnavailable(RuntimeError):
@@ -507,14 +525,15 @@ class QuiltRun(NamedTuple):
         pairs = torch.stack([self.snode[self.keep], self.dnode[self.keep]], dim=1)
         return pairs.to(torch.int64).cpu().numpy()
 
+    @obs.span("result.edges", host_result=True)
     def edges(self) -> np.ndarray:
         """(E, 2) int64 host array: the device edges in candidate order,
         then the tail pieces (sample-major for several samples)."""
         if self.host_edges is not None:
-            return self.host_edges
+            return _handed(self.host_edges)
         if self.num_samples != 1 and self.tail:
             # tail pieces land after every device edge; the split puts each
-            # sample's back with its own
+            # sample's back with its own (and counts them)
             return np.concatenate(self.edges_per_sample(), axis=0)
         pieces: List[np.ndarray] = []
         if self.keep is not None:
@@ -523,7 +542,7 @@ class QuiltRun(NamedTuple):
         pieces = [p for p in pieces if p.size]
         if not pieces:
             return np.zeros((0, 2), dtype=np.int64)
-        return np.concatenate(pieces, axis=0)
+        return _handed(np.concatenate(pieces, axis=0))
 
     def iter_chunks(self, chunk_edges: int):
         """The edges of a one-sample run as ``(chunk_edges, 2)`` host chunks
@@ -538,11 +557,12 @@ class QuiltRun(NamedTuple):
             return dedup.rechunk_edges(tail, chunk_edges)
         return dedup.iter_edge_chunks(self.snode, self.dnode, self.keep, chunk_edges, tail=tail)
 
+    @obs.span("result.edges", host_result=True)
     def edges_per_sample(self) -> List[np.ndarray]:
         """The kept edges split into per-sample (E_s, 2) arrays (candidates
         are sample-major, so each sample's device edges are contiguous)."""
         if self.host_edges is not None:
-            return [self.host_edges]
+            return [_handed(self.host_edges)]
         G, S = self.graphs_per_sample, self.num_samples
         per: List[List[np.ndarray]] = [[] for _ in range(S)]
         if self.keep is not None:
@@ -554,7 +574,7 @@ class QuiltRun(NamedTuple):
         for g, piece in self.tail:
             per[g // G].append(piece)
         return [
-            np.concatenate(p, axis=0) if sum(x.size for x in p) else np.zeros((0, 2), dtype=np.int64)
+            _handed(np.concatenate(p, axis=0)) if sum(x.size for x in p) else np.zeros((0, 2), dtype=np.int64)
             for p in per
         ]
 
@@ -694,6 +714,7 @@ def _clip_targets(x: np.ndarray, ncfg: int) -> np.ndarray:
     return np.clip(x, 0, min(ncfg * ncfg, 2**62))
 
 
+@obs.span("engine.run")
 def quilt_run(
     key: torch.Tensor,
     plan: QuiltPlan,
@@ -762,10 +783,11 @@ def quilt_run(
     else:
         if targets is None:
             # float32 arithmetic on the host, as the reference's numpy does it
-            z = prng.normal(sub, (gtot,)).numpy()
-            targets = _clip_targets(
-                np.round(z * np.float32(plan.std_edges) + np.float32(plan.mean_edges)), ncfg
-            ).astype(np.int64)
+            with obs.span("engine.targets"):
+                z = prng.normal(sub, (gtot,)).numpy()
+                targets = _clip_targets(
+                    np.round(z * np.float32(plan.std_edges) + np.float32(plan.mean_edges)), ncfg
+                ).astype(np.int64)
         else:
             targets = _clip_targets(np.asarray(targets, dtype=np.int64).reshape(gtot), ncfg)
         ask0 = dedup.uniform_ask(targets, oversample)
@@ -828,6 +850,7 @@ def quilt_run(
                     mesh, axes, g_pad = _degrade_layout(mesh, exc, gtot)
                     gids, tdev = _pad_inputs(gtot, g_pad, targets, budget, plan.device)
             DISPATCH_COUNTERS["device_rounds" if r == 0 else "device_topup_rounds"] += 1
+            DISPATCH_COUNTERS["candidates"] += gtot * a_tot  # every rank's rows, not this rank's chunk
             counts = _gather_rows(outs[5], mesh, axes)[:gtot].cpu().numpy().astype(np.int64)
             # the exact thinning already realized each cell's draw
             shortfall = np.zeros_like(targets) if exact else targets - counts

@@ -43,7 +43,7 @@ def _pair(ref, theta, mu, lg, **kw):
 
 
 def _counters(counters: dict) -> dict:
-    return {k: counters[k] for k in quilt.DISPATCH_COUNTERS}
+    return {k: counters[k] for k in quilt.ROUND_COUNTERS}
 
 
 def _same_sample(ref, rs, ps, seed):

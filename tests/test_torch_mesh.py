@@ -141,9 +141,13 @@ def _run_scenario(name: str, F, mesh, tmp: str, rank: int) -> dict:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)  # topup_host's "device rounds exhausted"
         edges = MAGMSampler(c).sample(key).edges
+    # the reference's keys; the port's registry also counts the candidates
+    # drawn and the edges handed to the host, which every rank counts alike
     counters = balldrop.DISPATCH_COUNTERS if name == "balldrop" else quilt.DISPATCH_COUNTERS
     before = bc if name == "balldrop" else qc
-    return {"": edges, "counters": np.array([counters[k] - before[k] for k in sorted(counters)])}
+    keys = sorted(balldrop.DISPATCH_COUNTERS) if name == "balldrop" else sorted(quilt.ROUND_COUNTERS)
+    return {"": edges, "counters": np.array([counters[k] - before[k] for k in keys]),
+            "drawn_kept": np.array([quilt.DISPATCH_COUNTERS[k] - qc[k] for k in ("candidates", "edges_out")])}
 
 
 def _rank(rank: int, world: int, tmp: str) -> None:
@@ -295,14 +299,17 @@ def test_mesh_run_matches_the_unsharded_port_on_every_rank(runs, name):
                 np.testing.assert_array_equal(got[k], zero[k], err_msg=f"rank {r} {k}")
     if name in SAMPLERS:
         assert zero[f"{name}:"].shape[0] > 0 if f"{name}:" in zero else zero[f"{name}:0"].shape[0] > 0
+    if f"{name}:drawn_kept" in zero:  # the registry's own counters (equal on every rank: above)
+        drawn, kept = zero[f"{name}:drawn_kept"]
+        assert kept == zero[f"{name}:"].shape[0] and (drawn > 0) == (name != "balldrop")
     if name == "device_loss":
         assert all(int(ranks[r]["device_loss:mesh_degrades"]) == 1 for r in (0, 1, 3))
         assert all(int(ranks[r]["device_loss:warned"]) for r in (0, 1, 3))
     if name == "topup":
-        c = dict(zip(sorted(quilt.DISPATCH_COUNTERS), zero["topup:counters"]))
+        c = dict(zip(sorted(quilt.ROUND_COUNTERS), zero["topup:counters"]))
         assert c["device_topup_rounds"] >= 1 and c["host_topup_rounds"] == 0 and c["degraded_fallbacks"] == 0
     if name == "topup_host":
-        c = dict(zip(sorted(quilt.DISPATCH_COUNTERS), zero["topup_host:counters"]))
+        c = dict(zip(sorted(quilt.ROUND_COUNTERS), zero["topup_host:counters"]))
         assert c["degraded_fallbacks"] == 1 and c["host_topup_rounds"] >= 1
     if name == "restore":
         w = np.arange(24, dtype=np.float32).reshape(8, 3)

@@ -78,7 +78,8 @@ def count_builds():
 
 
 def htod_copies(fn) -> tuple:
-    """(host -> device copies, device events) of one call of ``fn``."""
+    """(host -> device copies, device events) of one call of ``fn``; the
+    program's spans, device-side user annotations, are no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -86,7 +87,7 @@ def htod_copies(fn) -> tuple:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    device = [e for e in prof.events() if e.device_type != DeviceType.CPU and not e.is_user_annotation]
     return sum(e.name.startswith("Memcpy HtoD") for e in device), len(device)
 
 
