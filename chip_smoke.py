@@ -10,7 +10,9 @@ launch counts set to 0 just before and read just after:
 
 - the default MAGM session at full size (n = 2^15, THETA_1, mu = 0.5,
   d = 15: 49 block-pair graphs x 528,283 candidates in one exact-cell
-  round), checked against the same session on the CPU at n = 2^12;
+  round), checked against the same session on the CPU at n = 2^12; the
+  round's acceptance kernel exact_accept against its plain version on that
+  round, timed beside its bound;
 - the naive O(n^2) baseline on the session's F (1.07e9 Bernoulli trials in
   256 tiles of 2048^2), with the expected edge count sum Q and its sigma
   computed tile by tile through the magm_logprob kernel: the naive count
@@ -135,6 +137,12 @@ their plain versions at every shape of TILE_CHECKS, timed at 2048^2 and
 8192^2 with a warm and a cold L2), so that the tile kernels of two trees can
 be compared in one call.
 
+    python3 chip_smoke.py --accept
+
+builds the kernels and runs exact_accept's check and timing alone (the
+kernel against its plain version on the exact cell's round at n = 2^15,
+timed beside its bound and the plain version).
+
     python3 chip_smoke.py --lookup
 
 builds the kernels and runs quilt_descent_lookup's checks and timings alone
@@ -242,6 +250,7 @@ import ctypes
 import dataclasses
 import inspect
 import json
+import math
 import os
 import re
 import shutil
@@ -262,7 +271,8 @@ import torch  # noqa: E402
 
 from repro_torch.analysis import validate  # noqa: E402
 from repro_torch.analysis.roofline import (  # noqa: E402
-    BF16_FLOPS_PER_S, HBM_BYTES_PER_S, descent_bound_ms, kernel_bound_ms, model_flops, model_min_bytes,
+    BF16_FLOPS_PER_S, HBM_BYTES_PER_S, accept_bound_ms, accept_terms_ms, descent_bound_ms, kernel_bound_ms,
+    model_flops, model_min_bytes,
     native_bound_ms, tile_bound_ms, train_step_bound_ms, uniform_bound_ms,
 )
 from repro_torch.api import KPGMSampler, MAGMSampler, SamplerConfig  # noqa: E402
@@ -318,7 +328,7 @@ SPLIT_WARM = {0.5: 3, 0.8: 1}
 
 KERNELS = (
     "quilt_prng_descent_lookup", "quadrant_descent_prng", "magm_logprob", "bernoulli_tile",
-    "quadrant_descent", "quilt_descent_lookup", "quadrant_descent_native",
+    "quadrant_descent", "quilt_descent_lookup", "quadrant_descent_native", "exact_accept",
 )
 
 SPIN_CYCLES_PER_S = 1.98e9  # SM clock at boost: a spin of this many cycles lasts >= 1 s
@@ -448,20 +458,25 @@ def phase_cross_device(device) -> None:
         raise AssertionError(f"stats differ: {got.stats} vs {want.stats}")
 
 
+def accept_inputs(plan, rkey, gids, rows, budget: int, **extra):
+    """exact_accept's arguments exactly as the engines pass them."""
+    args = (quilt.accept_salt(rkey, plan.device), gids, *rows, plan.thetas, plan.logt, plan.log_level_sum)
+    return args, dict(a_tot=budget, budget=budget, **extra)
+
+
 def stage_breakdown(sampler, args, kw) -> None:
     """Device ms of each stage of one warm round, timed one by one with the
-    round's own inputs (the sum can differ from sample()'s host-clock time)."""
+    round's own inputs (the sum can differ from sample()'s host-clock time);
+    the acceptance by the kernel exact_accept and by its plain version."""
     plan = sampler.plan
     budget = kw["a_tot"]
     key, _ = prng.split(prng.PRNGKey(SEED + 3))
     _, rkey = prng.split(key)
-    scfg, dcfg, snode, dnode = qd.quilt_prng_descent_lookup(*args, **kw)
+    scfg, dcfg, snode, dnode = rows = qd.quilt_prng_descent_lookup(*args, **kw)
     dev = scfg.device
     local = torch.arange(scfg.numel(), device=dev) // budget
-    cell = scfg.long() * (1 << plan.d) + dcfg.long()
-    salt = quilt.accept_salt(rkey, dev)
-    alpha = quilt._exact_alpha(scfg, dcfg, plan.thetas, budget)
-    valid = (snode >= 0) & (dnode >= 0) & (quilt._accept_u01(salt, local, cell) < alpha)
+    acc, acc_kw = accept_inputs(plan, rkey, args[1], rows, budget)
+    valid = ops.exact_accept(*acc, **acc_kw)
     cum_asks = torch.arange(1, plan.num_graphs + 1, device=dev) * budget
     targets = torch.full((plan.num_graphs,), budget, device=dev)
     take, _ = quilt.dedup.segmented_unique_mask(
@@ -470,14 +485,45 @@ def stage_breakdown(sampler, args, kw) -> None:
     keep = take & (snode >= 0) & (dnode >= 0)
     stages = {
         "lookup_kernel": lambda: qd.quilt_prng_descent_lookup(*args, **kw),
-        "alpha": lambda: quilt._exact_alpha(scfg, dcfg, plan.thetas, budget),
-        "accept_hash": lambda: quilt._accept_u01(salt, local, cell),
+        "accept_kernel": lambda: ops.exact_accept(*acc, **acc_kw),
+        "accept_plain": lambda: ops.exact_accept_plain(*acc, **acc_kw),
         "dedup": lambda: quilt.dedup.segmented_unique_mask(
             local, scfg, dcfg, cum_asks, targets, node_bits=plan.d, valid=valid
         ),
         "edges_to_host": lambda: torch.stack([snode[keep], dnode[keep]], 1).long().cpu(),
     }
     log("stage_ms " + " ".join(f"{k}={cuda_ms(f, reps=3)}" for k, f in stages.items()))
+
+
+def phase_exact_accept(device) -> dict:
+    """The kernel exact_accept against its plain version (torch.equal) on
+    the exact cell's round (n = 2^15, 49 x 528,283 candidates), timed there
+    beside its bound and the plain version's time (its launches on the main
+    path are phase_full_size's)."""
+    plan = MAGMSampler(paper_config(FULL_LOG2_N, device)).plan
+    args, kw = round_inputs(plan, prng.PRNGKey(SEED + 3))
+    key, _ = prng.split(prng.PRNGKey(SEED + 3))
+    _, rkey = prng.split(key)
+    rows = qd.quilt_prng_descent_lookup(*args, **kw)
+    acc, acc_kw = accept_inputs(plan, rkey, args[1], rows, kw["a_tot"])
+    got = ops.exact_accept(*acc, **acc_kw)
+    want = ops.exact_accept_plain(*acc, **acc_kw)
+    torch.cuda.synchronize()
+    err = equal_or_raise([got], [want], f"exact_accept n=2^{FULL_LOG2_N}")
+    n, hits, kept = got.numel(), int(((rows[2] >= 0) & (rows[3] >= 0)).sum()), int(want.sum())
+    del want
+    k_ms = cuda_ms(lambda: ops.exact_accept(*acc, **acc_kw), reps=20)
+    prof_ms = profiled_kernel_ms(lambda: ops.exact_accept(*acc, **acc_kw), 10, "exact_accept_kernel")
+    p_ms = cuda_ms(lambda: ops.exact_accept_plain(*acc, **acc_kw), reps=3)
+    bound, bound_by = accept_bound_ms(n, hits, plan.d)
+    out = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+           "bound_by": bound_by, "library_ms": None}
+    log(f"timing exact_accept n=2^{FULL_LOG2_N}: {json.dumps(out)} rows={n} hits={hits} kept={kept} "
+        f"profiler_kernel_ms={prof_ms} ops_bound_ms, bytes_bound_ms={accept_terms_ms(n, hits, plan.d)}")
+    for line in _build.BUILD_LOG.get("exact_accept", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas exact_accept: {line.strip()}")
+    return out
 
 
 def phase_full_size(device) -> dict:
@@ -504,6 +550,8 @@ def phase_full_size(device) -> dict:
         raise AssertionError("the full-size sample left the exact path")
     if launches["quilt_prng_descent_lookup"] < 1:
         raise AssertionError("the main path did not launch quilt_prng_descent_lookup")
+    if launches["exact_accept"] != 1:
+        raise AssertionError(f"the exact round launched exact_accept {launches['exact_accept']} times, not once")
     e = gs.edges
     n = 1 << FULL_LOG2_N
     if e.ndim != 2 or e.shape[1] != 2 or e.shape[0] != gs.stats.kept_edges or e.shape[0] == 0:
@@ -538,7 +586,7 @@ def phase_full_size(device) -> dict:
         f"edges={e.shape[0]} max_memory_allocated={peak}")
     stage_breakdown(sampler, args, kw)
     return {
-        "launches": launches["quilt_prng_descent_lookup"],
+        "launches": launches["quilt_prng_descent_lookup"], "exact_accept_launches": launches["exact_accept"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
     }, sampler, int(e.shape[0])
 
@@ -1433,18 +1481,19 @@ def balldrop_stages(plan, budget: int) -> int:
     log(f"kernel == plain: balldrop round n=2^{FULL_LOG2_N} ranks=True rows={scfg.numel()} B={plan.B}")
     del want
     dev = scfg.device
-    log_extra = 2.0 * float(np.log(float(plan.B)))
     nb = quilt._node_bits(plan.n)
     local = torch.zeros(scfg.numel(), dtype=torch.int64, device=dev)
-    pair = snode.long() * (1 << nb) + dnode.long()
-    salt = quilt.accept_salt(rkey, dev)
-    alpha = quilt._exact_alpha(scfg, dcfg, plan.thetas, budget, log_extra)
-    valid = (snode >= 0) & (dnode >= 0) & (quilt._accept_u01(salt, local, pair) < alpha)
+    acc, acc_kw = accept_inputs(plan, rkey, gids, got, budget, log_extra=2.0 * math.log(plan.B), node_bits=nb)
+    valid = ops.exact_accept(*acc, **acc_kw)
+    err = max(err, equal_or_raise([valid], [ops.exact_accept_plain(*acc, **acc_kw)],
+                                  f"exact_accept node pairs n=2^{FULL_LOG2_N} a_tot={budget}"))
+    log(f"kernel == plain: exact_accept, balldrop round n=2^{FULL_LOG2_N} rows={valid.numel()} "
+        f"kept={int(valid.sum())}")
     cum_asks = torch.full((1,), budget, device=dev)
     stages = {
         "lookup_kernel_ranks": lambda: qd.quilt_prng_descent_lookup(*args, **kw),
-        "alpha": lambda: quilt._exact_alpha(scfg, dcfg, plan.thetas, budget, log_extra),
-        "accept_hash": lambda: quilt._accept_u01(salt, local, pair),
+        "accept_kernel": lambda: ops.exact_accept(*acc, **acc_kw),
+        "accept_plain": lambda: ops.exact_accept_plain(*acc, **acc_kw),
         "dedup": lambda: quilt.dedup.segmented_unique_mask(
             local, snode, dnode, cum_asks, cum_asks, node_bits=nb, valid=valid
         ),
@@ -1473,6 +1522,8 @@ def phase_balldrop_full_size(device) -> dict:
     delta = {k: v - before[k] for k, v in balldrop.DISPATCH_COUNTERS.items()}
     if launches["quilt_prng_descent_lookup"] != 1 or delta["device_rounds"] != 1 or delta["exact_fallbacks"]:
         raise AssertionError(f"n=2^{FULL_LOG2_N} ball dropping left the exact round: {launches} {delta}")
+    if launches["exact_accept"] != 1:
+        raise AssertionError(f"n=2^{FULL_LOG2_N} ball dropping launched exact_accept {launches['exact_accept']} times")
     check_edges(gs.edges, plan.n, f"balldrop n=2^{FULL_LOG2_N}")
     z = (gs.num_edges - plan.bd_mean) / plan.bd_std
     walls = timed_runs(sampler.sample, [prng.PRNGKey(SEED + 142 + i) for i in range(5)])
@@ -3913,6 +3964,11 @@ def main(argv) -> int:
         log(nvidia_smi())
         log(json.dumps({"tiles": tiles}))
         return 0
+    if argv == ["--accept"]:
+        accept = phase_exact_accept(device)
+        log(nvidia_smi())
+        log(json.dumps({"exact_accept": accept}))
+        return 0
     if argv == ["--lookup"]:
         plans = [MAGMSampler(paper_config(lg, device)).plan for lg in (HOST_LOG2_N, CHECK_LOG2_N)]
         lookup = phase_lookup_vs_plain(device, plans)
@@ -3991,6 +4047,7 @@ def main(argv) -> int:
         log(json.dumps({"split": split}))
         return 0
     check = phase_kernel_vs_plain(device)
+    accept = phase_exact_accept(device)
     tiles = phase_tiles_vs_plain(device)
     descent = phase_descent_prng(device)
     native = phase_native(device, descent["ms"])
@@ -4085,6 +4142,15 @@ def main(argv) -> int:
             "source": "src/repro_torch/csrc/quadrant_descent_native.cu",
             "replaces": "src/repro/kernels/quadrant_descent.py:369",
             **native,
+        },
+        {
+            "name": "exact_accept",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/exact_accept.cu",
+            # port-only: the reference computes the acceptance in jnp
+            "replaces": "none (src/repro/core/quilt.py::_exact_cell_valid, jnp)",
+            "launches": full["exact_accept_launches"],
+            **accept,
         },
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -71,6 +71,28 @@ def kernel_bound_ms(plan: "quilt.QuiltPlan", rows: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def accept_terms_ms(rows: int, hits: int, d: int) -> tuple:
+    """exact_accept's work on this card as ``(ops_ms, bytes_ms)``: its
+    32-bit operations at the 32-bit peak and its bytes at the HBM rate.
+    Counted from the source: every row reads snode and dnode and writes one
+    byte (9 B) in ~10 operations (loads, compares, the store, loop
+    control); a row that hits both lookups also reads scfg and dcfg (8 B)
+    and runs 8 operations a level for the table sum (two shifts, two masks,
+    the index, the shared read, the add, loop control) and ~250 more: the
+    row decode and cell ~25, the 64-bit hash and its uniform ~45, the five
+    transcendentals with their clamps and selects ~180."""
+    ops_ = rows * 10 + hits * (8 * d + 250)
+    bytes_ = rows * 9 + hits * 8 + d * 16 + 8
+    return ops_ / INT32_OPS_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+
+
+def accept_bound_ms(rows: int, hits: int, d: int) -> tuple:
+    """Least time for exact_accept's work: the larger term of
+    :func:`accept_terms_ms`."""
+    t_ops, t_bytes = accept_terms_ms(rows, hits, d)
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def tile_bound_ms(M: int, N: int, d: int, cell_bytes: int) -> tuple:
     """Least time for a log-Q tile: its bytes (cell_bytes per output cell,
     each attribute row read once) at the HBM rate, or its float32 work (d

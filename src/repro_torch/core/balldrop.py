@@ -21,7 +21,8 @@ that many balls directly:
 Without explicit targets the exact-cell round runs instead: one
 plan-constant round of ``quilt._exact_budget(p_max, mean_edges * B^2)``
 proposals per sample, each node pair accepted through the per-pair hash of
-``quilt._exact_cell_valid`` (``log_extra = 2 log B``), so edge inclusion is
+``quilt._exact_cell_valid`` (``log_extra = 2 log B``; on a card the kernel
+``exact_accept``, through ``quilt._exact_valid``), so edge inclusion is
 exactly Bernoulli(Q_ij).
 
 A device round's lookup takes one of three arms, bit-identical to each
@@ -100,13 +101,13 @@ def _bd_round_body(
     dev = gids.device
     s0, s1 = seed = ops.counter_seed(rkey)
     local = torch.arange(gc * a_tot, dtype=torch.int64, device=dev) // a_tot
-    gid = gids.to(torch.int64)[local]
     if arm == "kernel":
         scfg, dcfg, snode, dnode = ops.quilt_prng_descent_lookup(
             seed, gids, plan.cum, plan.table_cfg, plan.table_node,
             a_tot=a_tot, num_blocks=plan.B, ranks=True,
         )
     else:
+        gid = gids.to(torch.int64)[local]
         slot = torch.arange(gc * a_tot, dtype=torch.int64, device=dev) - local * a_tot
         u = ops.descent_uniforms(s0, s1, gid, slot, plan.d)
         kb, lb = (r.to(torch.int64) for r in ops.rank_pair(s0, s1, gid, slot, plan.B))
@@ -126,12 +127,13 @@ def _bd_round_body(
             flat = plan.inv.reshape(-1)
             snode = flat[(kb << plan.d) | sc]
             dnode = flat[(lb << plan.d) | dc]
-    valid = (snode >= 0) & (dnode >= 0)
-    if budget is not None:
-        pair = snode.to(torch.int64) * (1 << node_bits) + dnode.to(torch.int64)
-        valid = valid & quilt._exact_cell_valid(
-            quilt.accept_salt(rkey, dev), gid, scfg, dcfg, plan.thetas, budget,
-            log_extra=2.0 * math.log(plan.B), cell=pair,
+        del gid
+    if budget is None:
+        valid = (snode >= 0) & (dnode >= 0)
+    else:
+        valid = quilt._exact_valid(
+            rkey, gids, scfg, dcfg, snode, dnode, plan, a_tot=a_tot, budget=budget,
+            log_extra=2.0 * math.log(plan.B), node_bits=node_bits,
         )
     cum_asks = torch.arange(1, gc + 1, dtype=torch.int64, device=dev) * a_tot
     take, counts = dedup.segmented_unique_mask(

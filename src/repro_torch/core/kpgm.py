@@ -174,6 +174,12 @@ def log_level_sum(thetas: torch.Tensor) -> torch.Tensor:
     return _sum_levels(f32math.log(_level_sums(thetas)))
 
 
+def level_log_table(thetas: torch.Tensor) -> torch.Tensor:
+    """(4 d,) float32 log theta^(k)_{ab} at index 4 k + 2 a + b, each theta
+    clamped to [1e-30, 1], with the reference's float32 log."""
+    return f32math.log(torch.clamp(thetas, 1e-30, 1.0)).reshape(-1)
+
+
 def log_prob_pairs(thetas: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """float32 log P_{src,dst} for 0-based id pairs (paper eq. 6), summed
     from level 0 up with the reference's float32 log."""
@@ -181,9 +187,8 @@ def log_prob_pairs(thetas: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -
     shift = torch.arange(d - 1, -1, -1, device=src.device)
     a = (src.to(torch.int64)[:, None] >> shift) & 1
     b = (dst.to(torch.int64)[:, None] >> shift) & 1
-    logt = f32math.log(torch.clamp(thetas, 1e-30, 1.0)).reshape(-1)
     ks = torch.arange(d, device=src.device)
-    return _sum_levels(logt[ks * 4 + a * 2 + b])
+    return _sum_levels(level_log_table(thetas)[ks * 4 + a * 2 + b])
 
 
 def descend_draw(

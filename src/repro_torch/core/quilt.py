@@ -26,8 +26,9 @@ lambda_j = y, and maps them to node space (Theorem 3).
 
 A device round is the fused counter-PRNG descent + block lookup (the CUDA
 kernel ``quilt_prng_descent_lookup`` on a card), the acceptance thinning in
-the exact mode (:func:`_exact_cell_valid`), and the sort-based segmented
-dedup (``core/dedup.py``).  A host round descends threefry uniforms and
+the exact mode (:func:`_exact_cell_valid`; on a card the kernel
+``exact_accept``, one launch a round), and the sort-based segmented dedup
+(``core/dedup.py``).  A host round descends threefry uniforms and
 looks them up in the kernel ``quilt_descent_lookup``, then dedupes on the
 host in arrival order.  ``backend="balldrop"`` goes to the ball-dropping
 engine (``core/balldrop.py``) over the same plan.  ``num_samples = S > 1``
@@ -127,6 +128,11 @@ class QuiltPlan(NamedTuple):
     cfg_offset: Optional[torch.Tensor] = None  # (2^d,) int32 exclusive prefix
     cfg_count: Optional[torch.Tensor] = None  # (2^d,) int32 multiplicities
     cfg_nodes: Optional[torch.Tensor] = None  # (n,) int32 grouped node ids
+    # the exact acceptance's constants of the thetas (kpgm.level_log_table,
+    # kpgm.log_level_sum), computed once a plan for the kernel exact_accept,
+    # which takes them by value
+    logt: Optional[torch.Tensor] = None  # (4 d,) float32, on the host
+    log_level_sum: Optional[float] = None  # a float32 value
 
     @property
     def num_graphs(self) -> int:
@@ -247,6 +253,8 @@ def _assemble_plan(F_shape, th: torch.Tensor, state, dev: torch.device) -> Quilt
         cfg_offset=offset,
         cfg_count=count,
         cfg_nodes=nodes,
+        logt=kpgm.level_log_table(th),
+        log_level_sum=float(kpgm.log_level_sum(th)),
     )
     PLAN_STATS["plan_builds"] += 1
     return plan
@@ -417,6 +425,35 @@ def _exact_cell_valid(
     return _accept_u01(salt, gid, cell) < _exact_alpha(scfg, dcfg, thetas, budget, log_extra)
 
 
+def _exact_valid(
+    rkey: torch.Tensor,
+    gids: torch.Tensor,
+    scfg: torch.Tensor,
+    dcfg: torch.Tensor,
+    snode: torch.Tensor,
+    dnode: torch.Tensor,
+    plan: QuiltPlan,
+    *,
+    a_tot: int,
+    budget: int,
+    log_extra: float = 0.0,
+    node_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """An exact round's keep mask over its ``gids.numel() * a_tot`` rows:
+    both lookups hit and :func:`_exact_cell_valid` accepts, the hash unit
+    being the config pair or, with ``node_bits``, the node pair.  On a card
+    that is one launch of the kernel ``exact_accept`` inside the
+    ``engine.alpha`` span; on the CPU its plain version opens
+    ``engine.alpha`` and ``engine.accept_hash`` itself."""
+    args = (accept_salt(rkey, gids.device), gids, scfg, dcfg, snode, dnode,
+            plan.thetas, plan.logt, plan.log_level_sum)
+    kw = dict(a_tot=a_tot, budget=budget, log_extra=log_extra, node_bits=node_bits)
+    if gids.device.type == "cpu":
+        return ops.exact_accept(*args, **kw)
+    with obs.span("engine.alpha"):
+        return ops.exact_accept(*args, **kw)
+
+
 @obs.span("engine.round")
 def _round_body(
     rkey: torch.Tensor,
@@ -454,14 +491,7 @@ def _round_body(
     valid = None
     if budget is not None:
         # fold the lookup misses in too: counts are then the realized edge totals
-        valid = (
-            (snode >= 0)
-            & (dnode >= 0)
-            & _exact_cell_valid(
-                accept_salt(rkey, dev), gids.to(torch.int64)[local], scfg, dcfg,
-                plan.thetas, budget,
-            )
-        )
+        valid = _exact_valid(rkey, gids, scfg, dcfg, snode, dnode, plan, a_tot=a_tot, budget=budget)
     with obs.span("engine.dedup"):
         take, counts = dedup.segmented_unique_mask(
             local, scfg, dcfg, cum_asks, targets, node_bits=plan.d, valid=valid

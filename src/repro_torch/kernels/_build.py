@@ -6,7 +6,8 @@ use for ``sm_90a`` into ``build/repro_torch/`` at the repository root (or
 ``$REPRO_TORCH_BUILD_DIR``), named by a hash of the source, the shared
 headers (``csrc/*.cuh``) and the flags, so an edited source or header is
 rebuilt and an unchanged one is loaded as is.  :func:`build_all` runs one
-``nvcc`` per source, all at once.
+``nvcc`` per source, all at once; the first :func:`load` of a process runs
+it over every source.
 """
 
 from __future__ import annotations
@@ -105,9 +106,13 @@ def build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
+    """The loaded library of ``csrc/<name>.cu``.  A process's first load
+    builds every source of ``csrc/`` without a build, in one :func:`build_all`
+    pass, so no later kernel's first launch waits on ``nvcc``."""
     lib = _LIBS.get(name)
     if lib is None:
+        if not _LIBS:
+            build_all(sorted(path.stem for path in CSRC.glob("*.cu")))
         lib = ctypes.CDLL(str(build(name)))
         _LIBS[name] = lib
     return lib

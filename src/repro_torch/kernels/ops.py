@@ -16,6 +16,7 @@ import torch
 from repro_torch.core import f32math, kpgm, magm, prng
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import bernoulli_tile as _bt
+from repro_torch.kernels import exact_accept as _ea
 from repro_torch.kernels import magm_logprob as _ml
 from repro_torch.kernels import quadrant_descent as _qd
 
@@ -36,6 +37,8 @@ quilt_prng_descent_lookup = _qd.quilt_prng_descent_lookup
 quilt_prng_descent_lookup_plain = _qd.quilt_prng_descent_lookup_plain
 quadrant_descent = _qd.quadrant_descent
 quilt_descent_lookup = _qd.quilt_descent_lookup
+exact_accept = _ea.exact_accept
+exact_accept_plain = _ea.exact_accept_plain
 
 # the reference draws the naive tile's uniforms over the shape padded to
 # its (256, 256) Pallas blocks; the same draw gives the same mask
@@ -52,6 +55,7 @@ def kernel_launches() -> dict:
         "quadrant_descent": _qd.DESCENT_LAUNCHES,
         "quilt_descent_lookup": _qd.LOOKUP_LAUNCHES,
         "quadrant_descent_native": _qd.NATIVE_LAUNCHES,
+        "exact_accept": _ea.LAUNCHES,
     }
 
 
@@ -64,6 +68,7 @@ def reset_kernel_launches() -> None:
     _qd.DESCENT_LAUNCHES = 0
     _qd.LOOKUP_LAUNCHES = 0
     _qd.NATIVE_LAUNCHES = 0
+    _ea.LAUNCHES = 0
 
 
 def _batch_cumprobs(thetas) -> torch.Tensor:

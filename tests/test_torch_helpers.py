@@ -179,3 +179,5 @@ def test_kernel_bounds_are_the_quoted_numbers():
     _quoted(roofline.uniform_bound_ms(kpgm.DRAW_CHUNK_ELEMS // 20, 20), 0.0881, "bytes")  # 5a
     _quoted(roofline.uniform_bound_ms(4_194_304, 16, _plan(16).table_cfg), 0.111, "bytes")  # 5b
     _quoted(roofline.native_bound_ms(1 << 25, 15), 0.647, "operations")  # kernel 6
+    # exact_accept at the exact cell, 539,984 of its rows hitting both lookups (chip_smoke --accept)
+    _quoted(roofline.accept_bound_ms(rows, 539_984, 15), 0.0708, "bytes")

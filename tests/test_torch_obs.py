@@ -7,6 +7,8 @@ at the exact benchmark cell's shapes."""
 
 from __future__ import annotations
 
+import math
+
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -241,31 +243,39 @@ def cuda_device():
     return "cuda"
 
 
-def _busy_s(prof) -> float:
-    """Union of the trace's device intervals, in seconds."""
+def _busy_ms(prof, span=None) -> float:
+    """Union of the trace's device intervals, in ms; with ``span``, of their
+    parts inside the device-side ranges of that span (the profiler's device
+    user annotations)."""
+    device = [e for e in prof.profiler.kineto_results.events() if e.device_type() != torch.autograd.DeviceType.CPU]
+    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in device
+              if e.is_user_annotation() and e.name() == span] if span else [(-math.inf, math.inf)]
     spans = sorted(
-        (e.start_ns(), e.start_ns() + e.duration_ns())
-        for e in prof.profiler.kineto_results.events()
-        if e.device_type() != torch.autograd.DeviceType.CPU and not e.is_user_annotation()
+        (max(e.start_ns(), lo), min(e.start_ns() + e.duration_ns(), hi))
+        for e in device if not e.is_user_annotation()
+        for lo, hi in ranges if e.start_ns() < hi and e.start_ns() + e.duration_ns() > lo
     )
-    busy, hi = 0, None
+    busy, top = 0, None
     for s, e in spans:
-        if hi is None or s > hi:
+        if top is None or s > top:
             busy += e - s
-            hi = e
-        elif e > hi:
-            busy += e - hi
-            hi = e
-    return busy * 1e-9
+            top = e
+        elif e > top:
+            busy += e - top
+            top = e
+    return busy * 1e-6
 
 
 @pytest.mark.cuda
 def test_cuda_stream_times_nest_at_the_exact_cell(cuda_device):
     """The benchmark's exact cell (THETA_1, mu = 0.5, n = 2^15, attributes
-    of PRNGKey(0)): the stages' stream times nest, the run's stream time a
-    call is within 10% of the trace's device busy time a call, and the
-    spans' events launch no kernel (2,324 kernels a call, as the benchmark
-    counted them before the program had spans)."""
+    of PRNGKey(0)): the stages' stream times nest, the dedup's stream time a
+    call is within 10% of the trace's device busy time inside the dedup's
+    range, and the spans' events launch no kernel (103 kernels a call, the
+    acceptance one of them, exact_accept).  The dedup is the round's longest
+    device stage; the run's stream time also holds the host's gaps between
+    the stages, 1-6 ms of a ~14 ms busy call by the host's speed, so it is
+    no busy time (PERF.md)."""
     session = MAGMSampler(SamplerConfig(params=magm.make_params(THETA_1, 0.5, 15), num_nodes=1 << 15,
                                         attribute_key=prng.PRNGKey(0), device=cuda_device))
     for i in range(2):
@@ -281,12 +291,14 @@ def test_cuda_stream_times_nest_at_the_exact_cell(cuda_device):
     device = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() != torch.autograd.DeviceType.CPU and not e.is_user_annotation()]
     kernels = sum(not e.name().startswith(("Memcpy", "Memset")) for e in device) / calls
-    busy_ms = _busy_s(prof) * 1e3 / calls
-    print(f"stream ms a call {ms}; busy ms a call {busy_ms:.3f}; kernels a call {kernels}")
+    busy_ms = _busy_ms(prof) / calls
+    inside = {k: _busy_ms(prof, k) / calls for k in ms}
+    print(f"stream ms a call {ms}; busy ms a call {busy_ms:.3f}; busy ms inside each span a call {inside}; "
+          f"kernels a call {kernels}")
     assert ms["engine.alpha"] + ms["engine.dedup"] + ms["kernels.lookup"] <= ms["engine.round"]
     assert ms["engine.round"] <= ms["engine.run"] <= ms["session.sample"]
-    assert abs(ms["engine.run"] - busy_ms) <= 0.1 * busy_ms
-    assert kernels == 2324
+    assert abs(ms["engine.dedup"] - inside["engine.dedup"]) <= 0.1 * inside["engine.dedup"]
+    assert kernels == 103
 
 
 @pytest.mark.cuda
